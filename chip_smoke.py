@@ -7,20 +7,30 @@ From the repository root on a machine with a CUDA GPU, ``nvcc`` and the
 port's dependencies (torch, numpy). It
 
 1. prints the card (``nvidia-smi`` name and power limit) and versions;
-2. builds the CUDA kernel in ``tpu_pose_torch/csrc/`` with ``nvcc`` into
-   ``build/``;
-3. holds the kernel against its plain PyTorch version at the main path's
-   shapes, and times both with CUDA events, with L2 flushed (the kernels
-   line, against the HBM byte bound) and with the inputs L2-resident;
-4. drives the main path, ``PoseEstimator.estimate_and_fit``, at the full
+2. builds the CUDA kernels in ``tpu_pose_torch/csrc/`` with ``nvcc`` into
+   ``build/``, one compiler per source, all at once;
+3. times an empty CUDA-graph replay (``graph_replay``), the floor under
+   every kernel time below;
+4. holds each kernel against its plain PyTorch version at the main
+   paths' shapes (the soft-argmax decode within the reference's
+   tolerance, the int8 quantizer bit for bit), and times both with CUDA
+   events, with L2 flushed (the kernels line, against the HBM byte bound)
+   and with the inputs L2-resident;
+5. drives the main path, ``PoseEstimator.estimate_and_fit``, at the full
    default model width (CPMConfig(), FitConfig(), full-size synthetic SMPL
    and GMM-8 prior, random weights from seed 0) on an (8, 368, 368, 3)
    uint8 batch, with every kernel's launch count set to 0 just before and
    read just after; then times its phases;
-5. checks the outputs: shapes and finiteness, the kernel decode against
+6. drives the int8 serving path the same way: ``quantize=True`` with 8
+   calibration frames and ``cpm_microbatch=16`` on a (32, 368, 368, 3)
+   batch (two chunks), a dynamic-scale estimator at batch 16, and a
+   batch-8 call that the precision policy sends to the bf16 CPM; then the
+   int8 and bf16 CPM one after the other;
+7. checks the outputs: shapes and finiteness, the kernel decode against
    the plain decode end to end, the GPU path against the CPU path on a
-   small float32 model, and fit recovery of known bodies;
-6. prints a ``{"kernels": [...]}`` line and, last,
+   small float32 model (float and int8), and fit recovery of known
+   bodies;
+8. prints a ``{"kernels": [...]}`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Every phase prints one JSON object per line. Any failed check raises, so
@@ -31,15 +41,18 @@ exits 2 at once. It imports torch, numpy, the standard library and
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
 
 from tpu_pose_torch.api import PoseEstimator
 from tpu_pose_torch.fitting import fit as fit_lib
@@ -48,6 +61,7 @@ from tpu_pose_torch.models import joints as joints_lib
 from tpu_pose_torch.models import smpl as smpl_lib
 from tpu_pose_torch.ops import cuda_kernels
 from tpu_pose_torch.ops import preprocess as pre
+from tpu_pose_torch.ops import quantize as quantize_lib
 from tpu_pose_torch.ops import softargmax as softargmax_lib
 from tpu_pose_torch.utils.config import CPMConfig, FitConfig, StageConfig
 
@@ -56,6 +70,7 @@ from tpu_pose_torch.utils.config import CPMConfig, FitConfig, StageConfig
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 L2_FLUSH_BYTES = 256 * 2 ** 20  # read before a cold-L2 timing (L2: 50 MB)
+L2_BYTES = 50 * 2 ** 20
 
 DEVICE = "cuda"
 MAIN_BATCH = 8
@@ -64,6 +79,22 @@ MAIN_CPM = CPMConfig()  # the repo's default model, full width
 # (tests/test_pallas.py) — float32 sums over 2116 cells in another order.
 SA_JOINT_TOL = dict(rtol=1e-5, atol=1e-4)
 SA_CONF_TOL = dict(rtol=1e-6, atol=1e-6)
+
+INT8_CHUNK = 16                   # cpm_microbatch of the int8 path
+INT8_BATCH = 2 * INT8_CHUNK       # two chunks per call
+# Every input of kernel B2 on the int8 path, per chunk of 16 frames.
+QUANT_SHAPES = {
+    "images_368x368x3_f32": ((16, 368, 368, 3), torch.float32),
+    "trunk_184x184x128_bf16": ((16, 184, 184, 128), torch.bfloat16),
+    "trunk_92x92x128_bf16": ((16, 92, 92, 128), torch.bfloat16),
+    "stage_46x46x32_bf16": ((16, 46, 46, 32), torch.bfloat16),
+    "stage_46x46x128_bf16": ((16, 46, 46, 128), torch.bfloat16),
+    "head_46x46x512_bf16": ((16, 46, 46, 512), torch.bfloat16),
+    "mconv1_46x46x48_f32": ((16, 46, 46, 48), torch.float32),
+}
+QUANT_TIMED = ("images_368x368x3_f32", "trunk_184x184x128_bf16",
+               "stage_46x46x128_bf16")
+QUANT_KERNEL_ROW = "trunk_184x184x128_bf16"   # the kernels line's shape
 
 
 def emit(obj) -> None:
@@ -139,6 +170,40 @@ def host_s(fn) -> float:
     return time.perf_counter() - t0
 
 
+def kernel_rows(events):
+    """(name, launches, device µs) of the device kernels in a profiler's
+    ``key_averages()``, longest first. Only rows whose device type is the
+    GPU count: an operator's row also carries the device time of the
+    kernels it launched, so summing every row counts that time twice."""
+    rows = [(e.key, e.count, e.self_device_time_total) for e in events
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    return sorted(rows, key=lambda r: -r[2])
+
+
+def zero_counts() -> None:
+    cuda_kernels.soft_argmax_cuda.launches = 0
+    cuda_kernels.quantize_act_cuda.launches = 0
+    cuda_kernels.quantize_act_cuda.absmax_launches = 0
+
+
+def read_counts() -> dict:
+    return {"soft_argmax": cuda_kernels.soft_argmax_cuda.launches,
+            "quantize_act": cuda_kernels.quantize_act_cuda.launches,
+            "quantize_act_absmax":
+                cuda_kernels.quantize_act_cuda.absmax_launches}
+
+
+def check_result(res, b: int) -> None:
+    shapes = {"joints2d": (b, 14, 2), "conf": (b, 14), "theta": (b, 72),
+              "beta": (b, 10), "cam": (b, 3), "vertices": (b, 6890, 3),
+              "joints3d": (b, 24, 3), "energy": (b,)}
+    for k, shape in shapes.items():
+        v = getattr(res, k)
+        check(tuple(v.shape) == shape, f"{k} shape {tuple(v.shape)}")
+        check(bool(torch.isfinite(v).all()), f"{k} finite")
+
+
 # -- phases -----------------------------------------------------------------
 
 def phase_device() -> str:
@@ -158,9 +223,21 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    lib = cuda_kernels.build_soft_argmax()
+    libs = cuda_kernels.build()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "built": [str(lib)]})
+          "built": [str(lib) for lib in libs]})
+
+
+def phase_graph_replay() -> dict:
+    """An empty captured graph timed as cuda_ms times every kernel: what a
+    replay alone costs, with one call per replay after an L2 flush (cold)
+    and spread over 20 calls per replay (warm)."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="The CUDA Graph is empty")
+        replay = {"cold_ms": cuda_ms(lambda: None, cold_l2=True),
+                  "warm_ms": cuda_ms(lambda: None, cold_l2=False)}
+    emit({"phase": "graph_replay", **replay})
+    return replay
 
 
 def _planted(batch: int, seed: int) -> torch.Tensor:
@@ -216,7 +293,7 @@ def phase_soft_argmax_check() -> dict:
     return {"max_abs_err": worst}
 
 
-def phase_soft_argmax_timing() -> dict:
+def phase_soft_argmax_timing(replay: dict) -> dict:
     rows = {}
     for b in (1, 8, 128):
         hm = _planted(b, 100 + b)
@@ -233,7 +310,9 @@ def phase_soft_argmax_timing() -> dict:
                    "l2_warm_ms": cuda_ms(kernel, cold_l2=False),
                    "plain_l2_warm_ms": cuda_ms(plain, cold_l2=False),
                    "eager_ms": eager_ms(kernel),
-                   "plain_eager_ms": eager_ms(plain)}
+                   "plain_eager_ms": eager_ms(plain),
+                   "replay_ms": replay["cold_ms"],
+                   "replay_l2_warm_ms": replay["warm_ms"]}
         emit({"phase": "soft_argmax_timing", "batch": b, **rows[b],
               "library_ms": None})
     return rows
@@ -244,11 +323,15 @@ def _images(batch: int, size: int, seed: int) -> np.ndarray:
         0, 256, (batch, size, size, 3)).astype(np.uint8)
 
 
-def phase_main_path(est: PoseEstimator, images: np.ndarray):
+def phase_main_path(est: PoseEstimator, images: np.ndarray,
+                    phase: str = "main_path", quantize_launches: int = 0):
     """One warm-up and three timed estimate_and_fit calls, with the launch
-    counts zeroed just before and read just after."""
+    counts zeroed just before and read just after. ``quantize_launches``
+    is the number of B2 launches the calls must make (static scales, so
+    no abs-max pass)."""
     calls = 4
-    cuda_kernels.soft_argmax_cuda.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
     res = est.estimate_and_fit(images)           # warm-up
     torch.cuda.synchronize()
     seconds = []
@@ -257,19 +340,17 @@ def phase_main_path(est: PoseEstimator, images: np.ndarray):
         res = est.estimate_and_fit(images)
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
-    launches = {"soft_argmax": cuda_kernels.soft_argmax_cuda.launches}
+    launches = read_counts()
     b = images.shape[0]
-    shapes = {"joints2d": (b, 14, 2), "conf": (b, 14), "theta": (b, 72),
-              "beta": (b, 10), "cam": (b, 3), "vertices": (b, 6890, 3),
-              "joints3d": (b, 24, 3), "energy": (b,)}
-    for k, shape in shapes.items():
-        v = getattr(res, k)
-        check(tuple(v.shape) == shape, f"{k} shape {tuple(v.shape)}")
-        check(bool(torch.isfinite(v).all()), f"{k} finite")
+    check_result(res, b)
     check(launches["soft_argmax"] >= calls,
           f"soft_argmax launched {launches['soft_argmax']} times in "
           f"{calls} estimate_and_fit calls")
-    emit({"phase": "main_path", "batch": b, "calls": calls,
+    check(launches["quantize_act"] == quantize_launches
+          and launches["quantize_act_absmax"] == 0,
+          f"{phase}: quantize_act launched {launches} times, expected "
+          f"{quantize_launches} quantize and 0 abs-max launches")
+    emit({"phase": phase, "batch": b, "calls": calls,
           "launches": launches, "seconds_per_call": seconds,
           "frames_per_s": [b / s for s in seconds],
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
@@ -318,16 +399,252 @@ def phase_profile(est: PoseEstimator, images: np.ndarray) -> None:
         est.estimate_and_fit(images)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    rows = [(e.key, e.count, e.self_device_time_total)
-            for e in prof.key_averages() if e.self_device_time_total > 0]
+    rows = kernel_rows(prof.key_averages())
     device_s = sum(r[2] for r in rows) / 1e6
-    rows.sort(key=lambda r: -r[2])
     emit({"phase": "profile", "batch": images.shape[0], "wall_s": wall_s,
           "device_s": device_s if rows else "not measured",
           "device_busy_share": device_s / wall_s if rows else "not measured",
-          "device_ops": sum(r[1] for r in rows),
+          "device_kernels": sum(r[1] for r in rows),
           "top": [{"name": k[:80], "count": n, "device_ms": t / 1e3}
                   for k, n, t in rows[:8]]})
+
+
+def _act(shape, dtype, seed: int) -> torch.Tensor:
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    return (2.0 * torch.randn(shape, generator=g, device=DEVICE)).to(dtype)
+
+
+def _quant_cases():
+    """(name, input, static scale or None): every B2 input shape of the
+    int8 path at batch 16, static and dynamic; an odd element count;
+    values exactly half-way between two steps; all zeros."""
+    for i, (name, (shape, dtype)) in enumerate(QUANT_SHAPES.items()):
+        x = _act(shape, dtype, i)
+        yield f"{name}_dynamic", x, None
+        yield f"{name}_static", x, torch.tensor(0.05, device=DEVICE)
+    yield "odd_count_3x37x41x5_dynamic", _act((3, 37, 41, 5),
+                                              torch.float32, 50), None
+    g = torch.Generator(device=DEVICE).manual_seed(51)
+    k = torch.randint(-120, 120, (16, 46, 46, 48), generator=g,
+                      device=DEVICE).float()
+    for dtype in (torch.float32, torch.bfloat16):
+        yield (f"halfway_{str(dtype)[6:]}_static",
+               ((k + 0.5) * 0.25).to(dtype),
+               torch.tensor(0.25, device=DEVICE))
+    yield "zeros_dynamic", torch.zeros(16, 46, 46, 48, device=DEVICE), None
+
+
+def phase_quantize_act_check() -> dict:
+    """Kernel B2 against its plain version, bit for bit: the int8 values
+    (torch.equal) and the scale (==)."""
+    worst = 0
+    for name, x, a_scale in _quant_cases():
+        q_k, s_k = cuda_kernels.quantize_act_cuda(x, a_scale)
+        torch.cuda.synchronize()
+        q_p, s_p = quantize_lib.quantize_act(x, a_scale)
+        err = int((q_k.int() - q_p.int()).abs().max())
+        exact = torch.equal(q_k, q_p) and s_k.item() == s_p.item()
+        emit({"phase": "quantize_act_check", "case": name,
+              "shape": list(x.shape), "dtype": str(x.dtype)[6:],
+              "scale": s_k.item(), "max_abs_err_int8": err,
+              "scale_equal": s_k.item() == s_p.item(), "ok": exact})
+        check(exact, f"quantize_act kernel vs plain, {name}")
+        if name == "zeros_dynamic":
+            check(s_k.item() == np.float32(1e-12), "the 1e-12 scale floor")
+        worst = max(worst, err)
+    return {"max_abs_err": worst}
+
+
+def quantize_bound_ms(numel: int, in_bytes: int, reads: int = 1):
+    """Least time for one quantize on this card: the input read ``reads``
+    times and one int8 byte written per value over HBM, against ~6
+    float32 operations per value (convert, divide, round, two clamps,
+    convert)."""
+    t_bytes = (reads * numel * in_bytes + numel) / HBM_BYTES_PER_S * 1e3
+    t_ops = 6 * numel / F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def phase_quantize_act_timing(replay: dict) -> dict:
+    """The three main B2 shapes at batch 16: the kernel with a static and
+    a dynamic scale, its plain version, and torch.quantize_per_tensor —
+    the nearest single library call, not the same function (range
+    −128..127; takes float32 only, so it reads a float32 copy of a bf16
+    input); the count of its values that differ from the kernel's is
+    reported, not held."""
+    rows = {}
+    for name in QUANT_TIMED:
+        shape, dtype = QUANT_SHAPES[name]
+        x = _act(shape, dtype, 100)
+        a = quantize_lib.quantize_act(x)[1]    # its dynamic scale, static
+        x32, s = x.float(), a.item()
+
+        def static():
+            return cuda_kernels.quantize_act_cuda(x, a)
+
+        def dynamic():
+            return cuda_kernels.quantize_act_cuda(x)
+
+        def plain():
+            return quantize_lib.quantize_act(x, a)
+
+        def library():
+            return torch.quantize_per_tensor(x32, s, 0, torch.qint8)
+
+        diff = int((torch.int_repr(library()) != static()[0]).sum())
+        numel, size = x.numel(), x.element_size()
+        bound, bound_by = quantize_bound_ms(numel, size)
+        row = {"ms": cuda_ms(static, cold_l2=True),
+               "l2_warm_ms": cuda_ms(static, cold_l2=False),
+               "dynamic_ms": cuda_ms(dynamic, cold_l2=True),
+               "dynamic_l2_warm_ms": cuda_ms(dynamic, cold_l2=False),
+               "plain_ms": cuda_ms(plain, cold_l2=True),
+               "plain_l2_warm_ms": cuda_ms(plain, cold_l2=False),
+               "library_ms": cuda_ms(library, cold_l2=True),
+               "library_l2_warm_ms": cuda_ms(library, cold_l2=False),
+               "library_values_differing": diff,
+               "bound_ms": bound, "bound_by": bound_by,
+               "dynamic_bound_ms": (quantize_bound_ms(numel, size, 2)[0]
+                                    if numel * size > L2_BYTES else bound),
+               "replay_ms": replay["cold_ms"],
+               "replay_l2_warm_ms": replay["warm_ms"],
+               "input_mb": numel * size / 1e6}
+        rows[name] = row
+        emit({"phase": "quantize_act_timing", "shape": list(shape),
+              "dtype": str(dtype)[6:], "name": name, **row})
+    return rows
+
+
+def phase_int8_dynamic(images: np.ndarray) -> None:
+    """A quantize=True estimator without calibration frames (dynamic
+    scales) at batch 16: one call, both B2 passes launched per conv."""
+    est = PoseEstimator.create_synthetic(seed=0, cpm_cfg=MAIN_CPM,
+                                         quantize=True, device=DEVICE)
+    n_conv = len(list(est.cpm.children()))
+    zero_counts()
+    t0 = time.perf_counter()
+    res = est.estimate_and_fit(images)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    check_result(res, images.shape[0])
+    check(launches == {"soft_argmax": 1, "quantize_act": n_conv,
+                       "quantize_act_absmax": n_conv},
+          f"dynamic-scale int8 call launched {launches}")
+    emit({"phase": "int8_dynamic", "batch": images.shape[0],
+          "launches": launches, "seconds": seconds})
+
+
+def phase_int8_small_batch(est: PoseEstimator, images: np.ndarray) -> None:
+    """A batch below int8_min_batch on the quantize=True estimator runs
+    the bf16 CPM: no B2 launch."""
+    zero_counts()
+    res = est.estimate_and_fit(images)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    check_result(res, images.shape[0])
+    check(launches == {"soft_argmax": 1, "quantize_act": 0,
+                       "quantize_act_absmax": 0},
+          f"batch-{images.shape[0]} call on the int8 estimator launched "
+          f"{launches}")
+    emit({"phase": "int8_small_batch", "batch": images.shape[0],
+          "int8_min_batch": est.int8_min_batch, "launches": launches})
+
+
+def phase_int8_breakdown(est: PoseEstimator, images: np.ndarray) -> None:
+    """Preprocess + CPM at batch 16 through the int8 and the bf16 CPM of
+    the same estimator, in turns (int8, bf16, bf16, int8 after a warm-up
+    of each), host clock around synchronized calls; then one int8 CPM
+    forward under torch.profiler, device time by kernel."""
+    cfg = est.cpm_cfg
+    x_u8 = torch.from_numpy(images).to(DEVICE)
+
+    def cpm(module):
+        with torch.no_grad():
+            x = pre.preprocess(x_u8, cfg.input_size)
+            cm = pre.gaussian_center_map(cfg.input_size, cfg.center_sigma,
+                                         device=x.device)
+            return cpm_lib.cpm_forward(module, x,
+                                       cm.expand(x.shape[0], *cm.shape),
+                                       cfg)[-1]
+
+    modules = {"int8": est.cpm, "bf16": est.cpm_bf16}
+    for m in modules.values():
+        cpm(m)
+    times = {"int8": [], "bf16": []}
+    for name in ("int8", "bf16", "bf16", "int8"):
+        times[name].append(host_s(lambda: cpm(modules[name])))
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        cpm(est.cpm)
+        torch.cuda.synchronize()
+    rows = kernel_rows(prof.key_averages())
+    emit({"phase": "int8_breakdown", "batch": images.shape[0],
+          "int8_preprocess_cpm_s": times["int8"],
+          "bf16_preprocess_cpm_s": times["bf16"],
+          "int8_over_bf16": statistics.mean(times["int8"])
+          / statistics.mean(times["bf16"]),
+          "int8_cpm_device_s": (sum(r[2] for r in rows) / 1e6 if rows
+                                else "not measured"),
+          "int8_cpm_top": [{"name": k[:80], "count": n, "device_ms": t / 1e3}
+                           for k, n, t in rows[:10]]})
+
+
+def phase_int8_small_reference() -> None:
+    """The GPU int8 path against the CPU int8 path (which the CPU tests
+    hold against the JAX package) on a small model with float32
+    activations: one QuantizedCPM quantized and calibrated on the CPU and
+    copied to the card, the same preprocessed input and center map, TF32
+    off. The int32 sums are exact and B2 is bit-exact, so any difference
+    enters through float arithmetic outside them; the first conv input
+    that differs says where."""
+    cfg = CPMConfig(input_size=64, features=16, stage1_head_width=32,
+                    refine_width=16, num_stages=3, compute_dtype="float32")
+    cpu_float = cpm_lib.init_cpm_params(0, cfg, device="cpu")
+    x = pre.preprocess(torch.from_numpy(_images(4, 80, seed=8)), 64)
+    cm = pre.gaussian_center_map(64, cfg.center_sigma)
+    cm = cm.expand(x.shape[0], *cm.shape).contiguous()
+    scales = cpm_lib.calibrate_act_scales(cpu_float, x, cm, cfg)
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for mode, act in (("static", scales), ("dynamic", None)):
+            q_cpu = cpm_lib.quantize_params(cpu_float, act)
+            q_gpu = copy.deepcopy(q_cpu).to(DEVICE)
+            taps = {"cpu": {}, "gpu": {}}
+            outs = {}
+            with torch.no_grad():
+                for dev, q, where in (("cpu", q_cpu, "cpu"),
+                                      ("gpu", q_gpu, DEVICE)):
+                    hm = cpm_lib.cpm_forward(
+                        q, x.to(where), cm.to(where), cfg,
+                        on_conv_input=lambda n, h, d=dev:
+                        taps[d].update({n: h.float().cpu()}))[-1]
+                    outs[dev] = (hm.cpu(), cpm_lib._decode(hm, cfg, 100.0))
+            first = next((n for n in taps["cpu"]
+                          if not torch.equal(taps["cpu"][n], taps["gpu"][n])),
+                         None)
+            hm_err = float((outs["gpu"][0] - outs["cpu"][0]).abs().max())
+            j_err = float((outs["gpu"][1][0].cpu()
+                           - outs["cpu"][1][0]).abs().max())
+            ok = j_err <= 0.5
+            emit({"phase": "int8_small_reference", "scales": mode,
+                  "max_abs_err_heatmaps": hm_err,
+                  "max_abs_heatmap": float(outs["cpu"][0].abs().max()),
+                  "max_abs_err_joints2d_px": j_err,
+                  "first_differing_conv_input": first,
+                  "first_difference": (None if first is None else float(
+                      (taps["gpu"][first] - taps["cpu"][first]).abs().max())),
+                  "ok": ok})
+            check(ok, f"GPU vs CPU int8 path ({mode} scales): {j_err} px")
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
 
 
 def phase_plain_decode(est: PoseEstimator, images: np.ndarray,
@@ -438,10 +755,14 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this run "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     card = phase_device()
     phase_build()
+    replay = phase_graph_replay()
     err = phase_soft_argmax_check()
-    timing = phase_soft_argmax_timing()
+    timing = phase_soft_argmax_timing(replay)
+    q_err = phase_quantize_act_check()
+    q_timing = phase_quantize_act_timing(replay)
 
     t0 = time.perf_counter()
     est = PoseEstimator.create_synthetic(seed=0, cpm_cfg=MAIN_CPM,
@@ -456,18 +777,50 @@ def main() -> int:
     phase_small_reference()
     phase_fit_recovery(est)
 
+    t0 = time.perf_counter()
+    est8 = PoseEstimator.create_synthetic(
+        seed=0, cpm_cfg=MAIN_CPM, quantize=True,
+        calibration_images=_images(8, MAIN_CPM.input_size, seed=1),
+        cpm_microbatch=INT8_CHUNK, device=DEVICE)
+    n_conv = len(list(est8.cpm.children()))
+    emit({"phase": "create_int8", "seconds": time.perf_counter() - t0,
+          "conv_layers": n_conv, "int8_min_batch": est8.int8_min_batch,
+          "cpm_microbatch": est8.cpm_microbatch})
+    images8 = _images(INT8_BATCH, MAIN_CPM.input_size, seed=2)
+    chunks, calls = INT8_BATCH // INT8_CHUNK, 4
+    _, launches8 = phase_main_path(est8, images8, "int8_main_path",
+                                   quantize_launches=n_conv * chunks * calls)
+    phase_int8_dynamic(images8[:INT8_CHUNK])
+    phase_int8_small_batch(est8, images8[:MAIN_BATCH])
+    phase_int8_breakdown(est8, images8[:INT8_CHUNK])
+    phase_int8_small_reference()
+
+    q_row = q_timing[QUANT_KERNEL_ROW]
     emit({"kernels": [{
         "name": "soft_argmax", "route": "cuda",
         "source": "tpu_pose_torch/csrc/soft_argmax.cu",
         "replaces": "tpu_pose/ops/pallas_kernels.py:57",
         "launches": launches["soft_argmax"],
+        "launches_int8_path": launches8["soft_argmax"],
         "max_abs_err": err["max_abs_err"],
         "ms": timing[MAIN_BATCH]["ms"],
-        "kernel_ms": timing[MAIN_BATCH]["ms"],
         "plain_ms": timing[MAIN_BATCH]["plain_ms"],
         "bound_ms": timing[MAIN_BATCH]["bound_ms"],
         "bound_by": timing[MAIN_BATCH]["bound_by"],
-        "library_ms": None, "batch": MAIN_BATCH, "card": card}]})
+        "library_ms": None, "replay_ms": replay["cold_ms"],
+        "batch": MAIN_BATCH, "card": card}, {
+        "name": "quantize_act", "route": "cuda",
+        "source": "tpu_pose_torch/csrc/quantize_act.cu",
+        "replaces": "tpu_pose/ops/pallas_kernels.py:119",
+        "launches": launches8["quantize_act"],
+        "max_abs_err": q_err["max_abs_err"],
+        "ms": q_row["ms"], "plain_ms": q_row["plain_ms"],
+        "bound_ms": q_row["bound_ms"], "bound_by": q_row["bound_by"],
+        "library_ms": q_row["library_ms"], "replay_ms": replay["cold_ms"],
+        "dynamic_ms": q_row["dynamic_ms"],
+        "shape": list(QUANT_SHAPES[QUANT_KERNEL_ROW][0]),
+        "batch": INT8_CHUNK, "card": card}]})
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

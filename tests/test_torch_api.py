@@ -212,7 +212,6 @@ def test_unported_knobs_raise(estimators):
             test.fit_cfg)
     for kw in (dict(refine_center=True), dict(letterbox=True),
                dict(flip_tta=True), dict(scale_tta=(0.8,)),
-               dict(cpm_microbatch=4), dict(quantize=True),
                dict(init_head={}),
                dict(front_end=tc.FrontEndConfig(refine_scale=True))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):

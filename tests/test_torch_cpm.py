@@ -124,9 +124,9 @@ def test_unported_knobs_raise():
                dict(letterbox=True), dict(scale_tta=(1.25,))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             torch_cpm.estimate_2d_from_images(cpm, imgs, tcfg, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_cpm.estimate_2d_microbatched(
-            cpm, torch.from_numpy(_images(b=3)), tcfg, chunk=2)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            torch_cpm.estimate_2d_microbatched(
+                cpm, torch.from_numpy(_images(b=3)), tcfg, chunk=2, **kw)
 
 
 def test_params_npz_round_trip(tmp_path):

@@ -23,6 +23,7 @@ from tpu_pose_torch.fitting.fit import FitResult
 from tpu_pose_torch.models import cpm as cpm_lib
 from tpu_pose_torch.models import smpl as smpl_lib
 from tpu_pose_torch.models import smpl_data as smpl_data_lib
+from tpu_pose_torch.ops import preprocess as pre
 from tpu_pose_torch.utils import tf_converter
 from tpu_pose_torch.utils.config import CPMConfig, FitConfig, FrontEndConfig
 from tpu_pose_torch.utils.device import resolve_device
@@ -71,11 +72,10 @@ def _check_fit_inputs(joints2d, conf, num_joints: int) -> None:
             f"{js}, conf {cs}")
 
 
-# Knobs of FrontEndConfig this slice does not port, with ROADMAP items.
+# Knobs of FrontEndConfig the port does not have yet, with ROADMAP items.
 _NOT_PORTED = {"refine_center": "A.10", "refine_scale": "A.10",
                "scale_from_refined": "A.10", "flip_tta": "A.10",
-               "scale_tta": "A.10", "letterbox": "A.10",
-               "cpm_microbatch": "A.9"}
+               "scale_tta": "A.10", "letterbox": "A.10"}
 
 
 class PoseEstimator:
@@ -90,12 +90,22 @@ class PoseEstimator:
 
     ``device=None`` means CUDA, and raises without it. Front-end knobs are
     those of :class:`FrontEndConfig`, as keywords or as ``front_end=``;
-    this slice ports the defaults and ``fit_restarts``. Any other
-    non-default knob, ``quantize=True`` and ``init_head`` raise
-    ``NotImplementedError`` (ROADMAP.md A.9, A.10, A.14).
+    the port has the defaults, ``fit_restarts``, ``int8_min_batch`` and
+    ``cpm_microbatch``. Any other non-default knob and ``init_head`` raise
+    ``NotImplementedError`` (ROADMAP.md A.10, A.14).
+
+    int8 serving path: ``quantize=True`` quantizes the CPM
+    (``models/cpm.quantize_params``) with static activation scales
+    calibrated on ``calibration_images`` when given, dynamic ones
+    otherwise. With ``int8_min_batch > 1`` the float CPM is kept too, and
+    each call picks by batch size: float below ``int8_min_batch``, int8
+    at or above it (0 or 1: int8 always). An already-quantized CPM
+    (:class:`~tpu_pose_torch.models.cpm.QuantizedCPM`, e.g. from a
+    quantized npz) is used as it is. ``cpm_microbatch > 0`` runs the CPM
+    in sequential chunks of that many frames.
     """
 
-    def __init__(self, cpm: cpm_lib.CPM, smpl_model, prior=None,
+    def __init__(self, cpm, smpl_model, prior=None,
                  cpm_cfg: CPMConfig = CPMConfig(),
                  fit_cfg: FitConfig = FitConfig(),
                  quantize: bool = False,
@@ -124,16 +134,28 @@ class PoseEstimator:
         defaults = FrontEndConfig()
         off = [f"{k} (ROADMAP.md {item})" for k, item in _NOT_PORTED.items()
                if getattr(fe, k) != getattr(defaults, k)]
-        if quantize or calibration_images is not None:
-            off.append("quantize (ROADMAP.md A.9)")
         if init_head is not None:
             off.append("init_head (ROADMAP.md A.14)")
         if off:
             raise NotImplementedError(f"not ported yet: {', '.join(off)}")
         self.front_end = fe
         self.fit_restarts = fe.fit_restarts
+        self.int8_min_batch = fe.int8_min_batch
+        self.cpm_microbatch = fe.cpm_microbatch
         self.device = resolve_device(device)
-        self.cpm = cpm.to(self.device).eval()
+        cpm = cpm.to(self.device).eval()
+        # The float twin, kept only when quantizing happens here (an
+        # already-quantized CPM has none to fall back to).
+        self.cpm_bf16 = None
+        if quantize and not isinstance(cpm, cpm_lib.QuantizedCPM):
+            act_scales = None
+            if calibration_images is not None:
+                act_scales = self._calibrate(cpm, cpm_cfg,
+                                             calibration_images)
+            if fe.int8_min_batch > 1:
+                self.cpm_bf16 = cpm
+            cpm = cpm_lib.quantize_params(cpm, act_scales).eval()
+        self.cpm = cpm
         self.smpl_model = smpl_model.to(self.device)
         self.prior = None if prior is None else prior.to(self.device)
         self.cpm_cfg = cpm_cfg
@@ -198,6 +220,25 @@ class PoseEstimator:
             x = torch.from_numpy(np.ascontiguousarray(x))
         return torch.as_tensor(x, dtype=dtype, device=self.device)
 
+    def _calibrate(self, cpm, cfg: CPMConfig, images) -> dict:
+        """Static activation scales from raw calibration frames
+        (preprocessed and center-mapped as the entry points do)."""
+        x = pre.preprocess(self._tensor(images), cfg.input_size)
+        cmap = None
+        if cfg.use_center_map:
+            cm = pre.gaussian_center_map(cfg.input_size, cfg.center_sigma,
+                                         device=x.device)
+            cmap = cm.expand(x.shape[0], *cm.shape)
+        return cpm_lib.calibrate_act_scales(cpm, x, cmap, cfg)
+
+    def _params_for_batch(self, batch_size: int):
+        """Precision policy: the float CPM below ``int8_min_batch``, the
+        int8 one at or above it (the same CPM unless built with
+        ``quantize=True``)."""
+        if self.cpm_bf16 is not None and batch_size < self.int8_min_batch:
+            return self.cpm_bf16
+        return self.cpm
+
     def estimate_2d(self, images, refine_center: Optional[bool] = None,
                     refine_scale: Optional[bool] = None,
                     letterbox: Optional[bool] = None,
@@ -209,8 +250,9 @@ class PoseEstimator:
         _check_frames(images)
         with torch.no_grad():
             hm, joints, conf = cpm_lib.estimate_2d_microbatched(
-                self.cpm, self._tensor(images), self.cpm_cfg,
-                refine_center=bool(refine_center),
+                self._params_for_batch(images.shape[0]),
+                self._tensor(images), self.cpm_cfg,
+                chunk=self.cpm_microbatch, refine_center=bool(refine_center),
                 refine_scale=bool(refine_scale), letterbox=bool(letterbox),
                 flip_tta=bool(flip_tta), scale_tta=tuple(scale_tta or ()))
         return Estimate2DResult(hm, joints, conf)
@@ -244,11 +286,14 @@ class PoseEstimator:
 
     def estimate_and_fit(self, images) -> EstimateAndFitResult:
         """The main path: raw image batch → 2D joints (CPM + soft-argmax
-        decode) → batched SMPLify fit → posed mesh at the exact tier."""
+        decode) → batched SMPLify fit → posed mesh at the exact tier. CPM
+        precision follows the batch-size policy (``int8_min_batch``)."""
         _check_frames(images)
         with torch.no_grad():
             _, joints, conf = cpm_lib.estimate_2d_microbatched(
-                self.cpm, self._tensor(images), self.cpm_cfg)
+                self._params_for_batch(images.shape[0]),
+                self._tensor(images), self.cpm_cfg,
+                chunk=self.cpm_microbatch)
         if self.fit_restarts > 1:
             res = fit_lib.fit_smpl_multistart(
                 self.smpl_model, joints, conf, self.fit_cfg, self.prior,

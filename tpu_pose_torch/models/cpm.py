@@ -15,6 +15,12 @@ graph):
 The module's parameters are keyed by the Caffe layer names
 (``conv1_stage1.weight`` …), OIHW. Inside it runs NCHW; the public
 functions take and return NHWC like the JAX package.
+
+The int8 serving path (``quantize_params``, ``calibrate_act_scales``,
+:class:`QuantizedCPM`) runs the same forward with every conv replaced by
+``_conv_q``: quantize the input (kernel B2, ``csrc/quantize_act.cu``),
+int8 × int8 → int32 (``ops/quantize.int8_conv``), float32 epilogue. Its
+activations are NCHW views of NHWC memory, the layout its im2col reads.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import torch.nn.functional as F
 
 from tpu_pose_torch.ops import cuda_kernels
 from tpu_pose_torch.ops import preprocess as pre
+from tpu_pose_torch.ops import quantize as quant_lib
 from tpu_pose_torch.ops import softargmax as decode_lib
 from tpu_pose_torch.utils.config import CPMConfig
 from tpu_pose_torch.utils.device import resolve_device
@@ -82,20 +89,122 @@ class CPM(nn.Module):
             self.add_module(name, nn.Conv2d(cin, cout, k, padding=k // 2))
 
     def forward(self, images, center_map=None, num_stages=None):
-        return cpm_forward(self, images, center_map, self.cfg, num_stages)
+        return cpm_forward(self, images, center_map, self.cfg,
+                           num_stages=num_stages)
+
+
+def _pad8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
+class QuantizedConv(nn.Module):
+    """One int8 conv layer (the JAX package's ``{w_int8, w_scale, b,
+    a_scale}``), as buffers:
+
+    - ``w_int8`` (N_pad, K_pad) int8: the weights in im2col order,
+      K = (kh, kw, in), zero-padded to multiples of 8 for ``torch._int_mm``;
+    - ``w_scale`` (out,) and ``b`` (out,) float32;
+    - ``a_scale``: a 0-d float32 static input scale, or None (dynamic)."""
+
+    def __init__(self, k: int, cin: int, cout: int):
+        super().__init__()
+        self.kernel_size, self.in_channels, self.out_channels = k, cin, cout
+        self.register_buffer("w_int8", torch.zeros(
+            (_pad8(cout), _pad8(k * k * cin)), dtype=torch.int8))
+        self.register_buffer("w_scale", torch.ones(cout))
+        self.register_buffer("b", torch.zeros(cout))
+        self.register_buffer("a_scale", None)
+
+    def set_weights(self, w_hwio: torch.Tensor, w_scale, b,
+                    a_scale=None) -> None:
+        """Fill the buffers from int8 HWIO weights (the JAX package's
+        layout) and float32 scales."""
+        k, cin, cout = self.kernel_size, self.in_channels, self.out_channels
+        if tuple(w_hwio.shape) != (k, k, cin, cout):
+            raise ValueError(f"expected int8 weights {(k, k, cin, cout)} "
+                             f"(HWIO), got {tuple(w_hwio.shape)}")
+        self.w_int8.zero_()
+        self.w_int8[:cout, :k * k * cin] = w_hwio.reshape(-1, cout).t()
+        self.w_scale.copy_(torch.as_tensor(w_scale, dtype=torch.float32))
+        self.b.copy_(torch.as_tensor(b, dtype=torch.float32))
+        self.a_scale = (None if a_scale is None else torch.tensor(
+            a_scale, dtype=torch.float32, device=self.w_scale.device))
+
+    def weight_hwio(self) -> torch.Tensor:
+        """The int8 weights back in HWIO."""
+        k, cin, cout = self.kernel_size, self.in_channels, self.out_channels
+        return self.w_int8[:cout, :k * k * cin].t().reshape(k, k, cin, cout)
+
+
+class QuantizedCPM(nn.Module):
+    """The int8 CPM: one :class:`QuantizedConv` per Caffe layer name. Built
+    by :func:`quantize_params` or :func:`cpm_params_from_numpy` (from an
+    already-quantized parameter set); ``forward`` is :func:`cpm_forward`."""
+
+    def __init__(self, cfg: CPMConfig = CPMConfig()):
+        super().__init__()
+        self.cfg = cfg
+        for name, k, cin, cout, _ in _layer_defs(cfg):
+            self.add_module(name, QuantizedConv(k, cin, cout))
+
+    def forward(self, images, center_map=None, num_stages=None):
+        return cpm_forward(self, images, center_map, self.cfg,
+                           num_stages=num_stages)
+
+
+# XLA folds the ``/ 127.0`` of the JAX package's jitted quantize_params
+# into a multiply by this float32 constant; the port does the same, so the
+# weight scales are bit-equal (ROADMAP.md §C).
+_INV_127 = float(np.float32(1.0) / np.float32(127.0))
+
+
+def quantize_params(cpm: CPM, act_scales: dict | None = None
+                    ) -> QuantizedCPM:
+    """Per-output-channel symmetric int8 weights (port of the JAX
+    ``quantize_params``): ``w_scale = max(max|w| over (in, kh, kw) / 127,
+    1e-12)``, the ``/ 127`` computed as the JAX package's jitted code
+    computes it (:data:`_INV_127`), then ``w_int8 = clip(round(w /
+    w_scale), -127, 127)`` (true division, half to even); bias kept in
+    float32. ``act_scales`` (from
+    :func:`calibrate_act_scales`) adds each listed layer's static input
+    scale; without it the activation scales are dynamic. On ``cpm``'s
+    device."""
+    qcpm = QuantizedCPM(cpm.cfg).to(next(cpm.parameters()).device)
+    with torch.no_grad():
+        for name, conv in cpm.named_children():
+            w = conv.weight.float()
+            scale = torch.clamp_min(w.abs().amax(dim=(1, 2, 3)) * _INV_127,
+                                    1e-12)
+            w_q = torch.clamp(torch.round(w / scale[:, None, None, None]),
+                              -127, 127).to(torch.int8)
+            a = None
+            if act_scales and name in act_scales:
+                a = np.float32(act_scales[name])
+            getattr(qcpm, name).set_weights(w_q.permute(2, 3, 1, 0), scale,
+                                            conv.bias, a)
+    return qcpm
+
+
+def _is_quantized(params: dict) -> bool:
+    return "w_int8" in next(iter(params.values()))
 
 
 def cpm_params_from_numpy(params: dict, cfg: CPMConfig = CPMConfig(),
-                          device=None) -> CPM:
+                          device=None):
     """A :class:`CPM` holding ``params`` — the JAX package's parameter
-    layout, ``{layer: {"w": HWIO, "b": (out,)}}`` as numpy arrays. Raises
-    on a missing or extra layer or a wrong shape."""
-    cpm = CPM(cfg)
+    layout, ``{layer: {"w": HWIO, "b": (out,)}}`` as numpy arrays — or,
+    for a quantized set (``{"w_int8": HWIO int8, "w_scale", "b"[,
+    "a_scale"]}``, what the JAX ``quantize_params`` returns and
+    ``save_params_npz`` writes), a :class:`QuantizedCPM`. Raises on a
+    missing or extra layer or a wrong shape."""
     names = {name for name, *_ in _layer_defs(cfg)}
     missing, extra = names - set(params), set(params) - names
     if missing or extra:
         raise ValueError(f"CPM params do not match {cfg}: missing "
                          f"{sorted(missing)}, extra {sorted(extra)}")
+    if _is_quantized(params):
+        return _quantized_from_numpy(params, cfg).to(resolve_device(device))
+    cpm = CPM(cfg)
     state = {}
     for name in names:
         conv = getattr(cpm, name)
@@ -114,10 +223,41 @@ def cpm_params_from_numpy(params: dict, cfg: CPMConfig = CPMConfig(),
     return cpm.to(resolve_device(device))
 
 
-def cpm_params_to_numpy(cpm: CPM) -> dict:
-    """The inverse of :func:`cpm_params_from_numpy`: HWIO numpy params in
-    the JAX package's layout (what ``utils/tf_converter.save_params_npz``
-    writes)."""
+def _quantized_from_numpy(params: dict, cfg: CPMConfig) -> QuantizedCPM:
+    qcpm = QuantizedCPM(cfg)
+    for name, k, cin, cout, _ in _layer_defs(cfg):
+        p = params[name]
+        w = np.array(p["w_int8"])                # writable copies
+        scale = np.array(p["w_scale"], np.float32)
+        b = np.array(p["b"], np.float32)
+        if (w.dtype != np.int8 or w.shape != (k, k, cin, cout)
+                or scale.shape != (cout,) or b.shape != (cout,)):
+            raise ValueError(
+                f"{name}: expected w_int8 {(k, k, cin, cout)} int8 (HWIO), "
+                f"w_scale and b ({cout},), got {w.dtype} {w.shape}, "
+                f"{scale.shape} and {b.shape}")
+        a = p.get("a_scale")
+        getattr(qcpm, name).set_weights(
+            torch.from_numpy(w), torch.from_numpy(scale),
+            torch.from_numpy(b), None if a is None else np.float32(a))
+    return qcpm
+
+
+def cpm_params_to_numpy(cpm) -> dict:
+    """The inverse of :func:`cpm_params_from_numpy`: numpy params in the
+    JAX package's layout (what ``utils/tf_converter.save_params_npz``
+    writes) — HWIO ``w``/``b``, or for a :class:`QuantizedCPM` HWIO int8
+    ``w_int8``, ``w_scale``, ``b`` and, where set, a 0-d ``a_scale``."""
+    if isinstance(cpm, QuantizedCPM):
+        out = {}
+        for name, layer in cpm.named_children():
+            p = {"w_int8": layer.weight_hwio().cpu().numpy(),
+                 "w_scale": layer.w_scale.cpu().numpy().copy(),
+                 "b": layer.b.cpu().numpy().copy()}
+            if layer.a_scale is not None:
+                p["a_scale"] = layer.a_scale.cpu().numpy().copy()
+            out[name] = p
+        return out
     return {name: {"w": conv.weight.detach().cpu().numpy()
                    .transpose(2, 3, 1, 0).copy(),
                    "b": conv.bias.detach().cpu().numpy().copy()}
@@ -166,11 +306,40 @@ def _pool(x):
     return F.max_pool2d(x, 3, 2)
 
 
-def _make_conv(cpm: CPM, cfg: CPMConfig):
-    """Layer applier ``c(name, h, relu)`` + the activation dtype."""
-    dtype = getattr(torch, cfg.compute_dtype)
+def _conv_q(x, layer: QuantizedConv, relu: bool, act_dtype):
+    """int8 conv (port of the JAX ``_conv_q``): quantize the NCHW input
+    (through its NHWC view) with kernel B2's wrapper, int8 × int8 → int32,
+    then the float32 epilogue in JAX's order — ``acc * (a_scale *
+    w_scale) + b``, ReLU — cast to ``act_dtype``. Returns an NCHW view of
+    the NHWC output."""
+    q, a_scale = cuda_kernels.quantize_act_cuda(x.permute(0, 2, 3, 1),
+                                                layer.a_scale)
+    scale = a_scale * layer.w_scale
+
+    def epilogue(acc):
+        y = acc.float().mul_(scale).add_(layer.b)
+        return torch.relu_(y) if relu else y
+
+    y = quant_lib.int8_conv(q, layer.w_int8.t(), layer.kernel_size,
+                            layer.out_channels, epilogue, act_dtype)
+    return y.permute(0, 3, 1, 2)
+
+
+def _make_conv(cpm, cfg: CPMConfig, on_conv_input=None):
+    """Layer applier ``c(name, h, relu)`` + the activation dtype.
+    ``on_conv_input(name, h)`` sees every conv's input (the calibration
+    tap). As in the JAX package, an int8 CPM's dtype is float32: the
+    previous beliefs and the center hint enter the concat before each
+    Mconv1 in float32, which promotes it from the bf16 features."""
+    quantized = isinstance(cpm, QuantizedCPM)
+    act = getattr(torch, cfg.compute_dtype)
+    dtype = torch.float32 if quantized else act
 
     def c(name, h, relu=True):
+        if on_conv_input is not None:
+            on_conv_input(name, h)
+        if quantized:
+            return _conv_q(h, getattr(cpm, name), relu, act)
         return _conv(h, getattr(cpm, name), relu, dtype)
 
     return c, dtype
@@ -235,21 +404,26 @@ def _refine_stages(c, dtype, f, belief1, cmap_lo, n_stages):
     return beliefs
 
 
-def cpm_forward(cpm: CPM, images: torch.Tensor,
+def cpm_forward(cpm, images: torch.Tensor,
                 center_map: torch.Tensor | None = None,
                 cfg: CPMConfig = CPMConfig(),
+                on_conv_input=None,
                 num_stages: int | None = None) -> List[torch.Tensor]:
-    """All-stage forward pass.
+    """All-stage forward pass of a :class:`CPM` or a :class:`QuantizedCPM`.
 
     Args:
       images: (B, S, S, 3) normalized inputs (ops/preprocess.py).
       center_map: (B, S, S, 1) full-res center map, or None.
+      on_conv_input: optional tap ``f(layer_name, input)`` called on every
+        conv's input (used by :func:`calibrate_act_scales`).
     Returns:
-      per-stage belief maps, each (B, H, H, P+1) float32. Each is an NHWC
-      view of the NCHW conv output (every (b, part) map is one contiguous
-      run of H·W floats, which the CUDA decode reads directly).
+      per-stage belief maps, each (B, H, H, P+1) float32. For a CPM each is
+      an NHWC view of the NCHW conv output (every (b, part) map is one
+      contiguous run of H·W floats, which the CUDA decode reads directly);
+      for a QuantizedCPM it is NHWC-contiguous (the decode takes any
+      strides).
     """
-    c, dtype = _make_conv(cpm, cfg)
+    c, dtype = _make_conv(cpm, cfg, on_conv_input)
     x = images.permute(0, 3, 1, 2)
     trunk1, b1 = _stage1_forward(c, x)
     n_stages = cfg.num_stages if num_stages is None else num_stages
@@ -258,6 +432,27 @@ def cpm_forward(cpm: CPM, images: torch.Tensor,
         beliefs += _refine_forward(c, dtype, x, trunk1, b1, center_map, cfg,
                                    n_stages)
     return [b.permute(0, 2, 3, 1) for b in beliefs]
+
+
+def calibrate_act_scales(cpm: CPM, images: torch.Tensor,
+                         center_map: torch.Tensor | None = None,
+                         cfg: CPMConfig = CPMConfig(),
+                         margin: float = 1.1) -> dict:
+    """Post-training calibration (port of the JAX
+    ``calibrate_act_scales``): one float forward in ``cfg.compute_dtype``
+    records every layer's max|input|; the static scales are
+    ``max(amax · margin / 127, 1e-12)`` as Python floats. The maxima are
+    read back to the host once, at the end."""
+    amaxes = {}
+
+    def tap(name, x):
+        amaxes[name] = x.abs().amax().float()
+
+    with torch.no_grad():
+        cpm_forward(cpm, images, center_map, cfg, on_conv_input=tap)
+    values = torch.stack(list(amaxes.values())).tolist()
+    return {name: max(a * margin / 127.0, 1e-12)
+            for name, a in zip(amaxes, values)}
 
 
 def _decode(heatmaps: torch.Tensor, cfg: CPMConfig, beta: float):
@@ -276,7 +471,7 @@ def _decode(heatmaps: torch.Tensor, cfg: CPMConfig, beta: float):
                      f"'torch'")
 
 
-def estimate_2d_from_images(cpm: CPM, images: torch.Tensor,
+def estimate_2d_from_images(cpm, images: torch.Tensor,
                             cfg: CPMConfig = CPMConfig(),
                             beta: float = 100.0,
                             refine_center: bool = False,
@@ -314,13 +509,21 @@ def estimate_2d_from_images(cpm: CPM, images: torch.Tensor,
     return heatmaps, joints, conf
 
 
-def estimate_2d_microbatched(cpm: CPM, images: torch.Tensor,
+def estimate_2d_microbatched(cpm, images: torch.Tensor,
                              cfg: CPMConfig = CPMConfig(),
                              chunk: int = 0, **kw):
-    """:func:`estimate_2d_from_images` over the whole batch. Sequential
-    micro-chunks (``0 < chunk < B``) are not ported yet (ROADMAP.md A.9)."""
-    if 0 < chunk < images.shape[0]:
-        raise NotImplementedError(
-            "cpm_microbatch micro-chunking is not ported yet (ROADMAP.md "
-            "A.9)")
-    return estimate_2d_from_images(cpm, images, cfg, **kw)
+    """:func:`estimate_2d_from_images` in sequential micro-chunks of
+    ``chunk`` frames, one after another, so that peak activation memory is
+    per chunk. The whole batch at once when ``chunk`` ≤ 0 or ≥ the batch.
+    An uneven batch is padded up to a chunk multiple by repeating its last
+    image, and the results are sliced back."""
+    b = images.shape[0]
+    if chunk <= 0 or chunk >= b:
+        return estimate_2d_from_images(cpm, images, cfg, **kw)
+    b_pad = -(-b // chunk) * chunk
+    if b_pad != b:
+        images = torch.cat(
+            [images, images[-1:].expand(b_pad - b, *images.shape[1:])])
+    outs = [estimate_2d_from_images(cpm, images[i:i + chunk], cfg, **kw)
+            for i in range(0, b_pad, chunk)]
+    return tuple(torch.cat(parts)[:b] for parts in zip(*outs))

@@ -27,9 +27,11 @@ from pathlib import Path
 
 import torch
 
+from tpu_pose_torch.ops import quantize as quantize_lib
 from tpu_pose_torch.ops import softargmax as softargmax_lib
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCES = ("soft_argmax", "quantize_act")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -45,38 +47,72 @@ def build_dir() -> Path:
     return Path(cache) / "tpu_pose_torch"
 
 
-def build_soft_argmax() -> Path:
-    """Compile ``csrc/soft_argmax.cu`` unless it is already built; return
-    the library's path. Raises with the compiler's output if nvcc fails."""
-    src = CSRC / "soft_argmax.cu"
+def _library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(
         src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out = build_dir() / f"libsoft_argmax-{digest[:16]}.so"
-    if out.exists():
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")  # concurrent builders
+    return build_dir() / f"lib{name}-{digest[:16]}.so"
+
+
+def build(*names: str) -> list:
+    """Compile ``csrc/<name>.cu`` for each name (default: every source)
+    unless already built, one ``nvcc`` per source, all started together;
+    return the libraries' paths. Raises with the compiler's output if an
+    nvcc fails."""
+    names = names or SOURCES
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed to build {src.name} "
-                           f"(exit {proc.returncode}):\n{proc.stdout}"
-                           f"{proc.stderr}")
-    os.replace(tmp, out)
-    return out
+    outs = [_library_path(name) for name in names]
+    running = []
+    for name, out in zip(names, outs):
+        if out.exists():
+            continue
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")  # concurrent builds
+        proc = subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running.append((name, out, tmp, proc))
+    failed = []
+    for name, out, tmp, proc in running:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed to build {name}.cu (exit "
+                          f"{proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
 
 
 @functools.lru_cache(maxsize=None)
-def _soft_argmax_library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build_soft_argmax()))
-    lib.soft_argmax_f32.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 8
-        + [ctypes.c_float] * 2 + [ctypes.c_void_p])
-    lib.soft_argmax_f32.restype = ctypes.c_int
-    lib.soft_argmax_error_string.argtypes = [ctypes.c_int]
-    lib.soft_argmax_error_string.restype = ctypes.c_char_p
+def _library(name: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build(name)[0]))
+    getattr(lib, f"{name}_error_string").argtypes = [ctypes.c_int]
+    getattr(lib, f"{name}_error_string").restype = ctypes.c_char_p
+    if name == "soft_argmax":
+        lib.soft_argmax_f32.argtypes = (
+            [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 8
+            + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+        lib.soft_argmax_f32.restype = ctypes.c_int
+    else:
+        lib.quantize_act_absmax.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p,
+            ctypes.c_void_p]
+        lib.quantize_act_absmax.restype = ctypes.c_int
+        lib.quantize_act_q.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+        lib.quantize_act_q.restype = ctypes.c_int
     return lib
+
+
+def _check_launch(lib, name: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(
+            f"{name} kernel launch failed: "
+            f"{getattr(lib, f'{name}_error_string')(rc).decode()} "
+            f"(cudaError {rc})")
 
 
 def soft_argmax_cuda(heatmaps: torch.Tensor, beta: float = 100.0,
@@ -107,19 +143,71 @@ def soft_argmax_cuda(heatmaps: torch.Tensor, beta: float = 100.0,
                          device=heatmaps.device)
     conf = torch.empty((b, c - 1), dtype=torch.float32,
                        device=heatmaps.device)
-    lib = _soft_argmax_library()
+    lib = _library("soft_argmax")
     with torch.cuda.device(heatmaps.device):
         stream = torch.cuda.current_stream(heatmaps.device).cuda_stream
         rc = lib.soft_argmax_f32(
             heatmaps.data_ptr(), joints.data_ptr(), conf.data_ptr(),
             b, c - 1, h, w, *heatmaps.stride(), float(beta), float(stride),
             stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"soft_argmax kernel launch failed: "
-            f"{lib.soft_argmax_error_string(rc).decode()} (cudaError {rc})")
+    _check_launch(lib, "soft_argmax", rc)
     soft_argmax_cuda.launches += 1
     return joints, conf
 
 
 soft_argmax_cuda.launches = 0
+
+
+def quantize_act_cuda(x: torch.Tensor, a_scale=None):
+    """Symmetric per-tensor int8 quantization, ``(int8 values in x's
+    shape, 0-d float32 scale)``; the same function as
+    ``ops/quantize.quantize_act``, bit for bit. ``a_scale``: a calibrated
+    static scale (0-d float32 tensor), or None for the dynamic abs-max
+    scale. On a CUDA tensor (float32 or bf16) it launches
+    ``csrc/quantize_act.cu`` on the current stream, no host sync: with a
+    dynamic scale first the abs-max pass (counted in
+    ``.absmax_launches``), then the quantize pass (``.launches``). A
+    non-contiguous input is made contiguous first. On a CPU tensor it runs
+    the plain version."""
+    if x.device.type == "cpu":
+        return quantize_lib.quantize_act(x, a_scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"quantize_act_cuda: unsupported device {x.device}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"quantize_act_cuda takes float32 or bfloat16, got "
+                        f"{x.dtype}")
+    if x.numel() == 0:
+        raise ValueError("quantize_act_cuda: empty tensor")
+    x = x.contiguous()
+    if x.data_ptr() % 16:                      # the kernel's 16-byte loads
+        x = x.clone()
+    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    is_bf16 = int(x.dtype == torch.bfloat16)
+    lib = _library("quantize_act")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if a_scale is None:
+            amax = torch.zeros((), dtype=torch.float32, device=x.device)
+            _check_launch(lib, "quantize_act", lib.quantize_act_absmax(
+                x.data_ptr(), is_bf16, x.numel(), amax.data_ptr(), stream))
+            quantize_act_cuda.absmax_launches += 1
+            scale = torch.empty((), dtype=torch.float32, device=x.device)
+            rc = lib.quantize_act_q(x.data_ptr(), is_bf16, x.numel(),
+                                    amax.data_ptr(), 1, scale.data_ptr(),
+                                    q.data_ptr(), stream)
+        else:
+            scale = torch.as_tensor(a_scale, dtype=torch.float32,
+                                    device=x.device)
+            if scale.dim() != 0:
+                raise ValueError(f"quantize_act_cuda: a_scale must be a "
+                                 f"scalar, got shape {tuple(scale.shape)}")
+            rc = lib.quantize_act_q(x.data_ptr(), is_bf16, x.numel(),
+                                    scale.data_ptr(), 0, None, q.data_ptr(),
+                                    stream)
+    _check_launch(lib, "quantize_act", rc)
+    quantize_act_cuda.launches += 1
+    return q, scale
+
+
+quantize_act_cuda.launches = 0
+quantize_act_cuda.absmax_launches = 0

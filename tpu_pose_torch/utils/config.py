@@ -128,9 +128,10 @@ class FitConfig:
 @dataclasses.dataclass(frozen=True)
 class FrontEndConfig:
     """PoseEstimator front-end knobs in one hashable place (same fields
-    and defaults as the JAX package). This slice ports the defaults and
-    ``fit_restarts``; any other non-default knob raises
-    ``NotImplementedError`` in ``PoseEstimator`` (ROADMAP.md A.9/A.10)."""
+    and defaults as the JAX package). The port has the defaults,
+    ``fit_restarts``, ``int8_min_batch`` and ``cpm_microbatch``; any other
+    non-default knob raises ``NotImplementedError`` in ``PoseEstimator``
+    (ROADMAP.md A.10)."""
     fit_restarts: int = 1
     refine_center: bool = False
     refine_scale: bool = False

@@ -2,8 +2,11 @@
 ``tpu_pose/utils/tf_converter.py:save_params_npz/load_params_npz``).
 
 The format is a flat npz of ``layer.kind`` arrays — ``w`` HWIO and ``b``
-for float weights. It is numpy only; ``models/cpm.cpm_params_from_numpy``
-turns the loaded dict into a :class:`~tpu_pose_torch.models.cpm.CPM` and
+for float weights; ``w_int8`` HWIO int8, ``w_scale``, ``b`` and an
+optional 0-d ``a_scale`` for int8 weights. It is numpy only;
+``models/cpm.cpm_params_from_numpy`` turns the loaded dict into a
+:class:`~tpu_pose_torch.models.cpm.CPM` or
+:class:`~tpu_pose_torch.models.cpm.QuantizedCPM`, and
 ``cpm_params_to_numpy`` goes the other way.
 """
 

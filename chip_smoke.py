@@ -12,10 +12,13 @@ port's dependencies (torch, numpy). It
 3. times an empty CUDA-graph replay (``graph_replay``), the floor under
    every kernel time below;
 4. holds each kernel against its plain PyTorch version at the main
-   paths' shapes (the soft-argmax decode within the reference's
-   tolerance, the int8 quantizer bit for bit), and times both with CUDA
-   events, with L2 flushed (the kernels line, against the HBM byte bound)
-   and with the inputs L2-resident;
+   paths' shapes (the soft-argmax decode in both heatmap layouts within
+   the reference's tolerance, B2's quantizer and its fused
+   quantize-and-gather bit for bit on every tile of every int8 conv
+   input), and times both with CUDA events, with L2 flushed (the kernels
+   line, against the HBM byte bound) and with the inputs L2-resident; the
+   gather also beside the unfused route to the same rows (quantize pass,
+   ``F.pad``, ``unfold`` copy);
 5. drives the main path, ``PoseEstimator.estimate_and_fit``, at the full
    default model width (CPMConfig(), FitConfig(), full-size synthetic SMPL
    and GMM-8 prior, random weights from seed 0) on an (8, 368, 368, 3)
@@ -24,8 +27,10 @@ port's dependencies (torch, numpy). It
 6. drives the int8 serving path the same way: ``quantize=True`` with 8
    calibration frames and ``cpm_microbatch=16`` on a (32, 368, 368, 3)
    batch (two chunks), a dynamic-scale estimator at batch 16, and a
-   batch-8 call that the precision policy sends to the bf16 CPM; then the
-   int8 and bf16 CPM one after the other;
+   batch-8 call that the precision policy sends to the bf16 CPM, each
+   with B2's launches checked against the count computed from the conv
+   layers and ``int8_conv``'s tiles; then the int8 and bf16 CPM one after
+   the other, and the int8 CPM's device time by kernel;
 7. checks the outputs: shapes and finiteness, the kernel decode against
    the plain decode end to end, the GPU path against the CPU path on a
    small float32 model (float and int8), and fit recovery of known
@@ -52,6 +57,7 @@ import warnings
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.autograd import DeviceType
 
 from tpu_pose_torch.api import PoseEstimator
@@ -82,7 +88,9 @@ SA_CONF_TOL = dict(rtol=1e-6, atol=1e-6)
 
 INT8_CHUNK = 16                   # cpm_microbatch of the int8 path
 INT8_BATCH = 2 * INT8_CHUNK       # two chunks per call
-# Every input of kernel B2 on the int8 path, per chunk of 16 frames.
+# Every conv input of the int8 path, per chunk of 16 frames: each gets
+# B2's abs-max pass with dynamic scales; the 1×1 convs' inputs (46²×128,
+# 46²×512) also its standalone quantize pass, the others its gather.
 QUANT_SHAPES = {
     "images_368x368x3_f32": ((16, 368, 368, 3), torch.float32),
     "trunk_184x184x128_bf16": ((16, 184, 184, 128), torch.bfloat16),
@@ -92,9 +100,8 @@ QUANT_SHAPES = {
     "head_46x46x512_bf16": ((16, 46, 46, 512), torch.bfloat16),
     "mconv1_46x46x48_f32": ((16, 46, 46, 48), torch.float32),
 }
-QUANT_TIMED = ("images_368x368x3_f32", "trunk_184x184x128_bf16",
-               "stage_46x46x128_bf16")
-QUANT_KERNEL_ROW = "trunk_184x184x128_bf16"   # the kernels line's shape
+QUANT_TIMED = ("stage_46x46x128_bf16", "head_46x46x512_bf16")
+QUANT_KERNEL_ROW = "stage_46x46x128_bf16"   # 10 of the 12 1×1 convs
 
 
 def emit(obj) -> None:
@@ -181,17 +188,56 @@ def kernel_rows(events):
     return sorted(rows, key=lambda r: -r[2])
 
 
+COUNTED = {"soft_argmax": cuda_kernels.soft_argmax_cuda,
+           "quantize_act": cuda_kernels.quantize_act_cuda,
+           "quantize_act_absmax": cuda_kernels.act_scale_cuda,
+           "quantize_im2col": cuda_kernels.quantize_im2col_cuda}
+
+
 def zero_counts() -> None:
-    cuda_kernels.soft_argmax_cuda.launches = 0
-    cuda_kernels.quantize_act_cuda.launches = 0
-    cuda_kernels.quantize_act_cuda.absmax_launches = 0
+    for wrapper in COUNTED.values():
+        wrapper.launches = 0
 
 
 def read_counts() -> dict:
-    return {"soft_argmax": cuda_kernels.soft_argmax_cuda.launches,
-            "quantize_act": cuda_kernels.quantize_act_cuda.launches,
-            "quantize_act_absmax":
-                cuda_kernels.quantize_act_cuda.absmax_launches}
+    return {name: wrapper.launches for name, wrapper in COUNTED.items()}
+
+
+TRUNK_POOLS = {"conv1": 0, "conv2": 1, "conv3": 2}  # pools before them
+
+
+def conv_input_hw(cfg: CPMConfig) -> dict:
+    """Each conv layer's input height (= width): the input size through
+    the trunk's SAME 3×3/2 pools (ceil halving), 1/8 of it after."""
+    hw = {}
+    for name, *_ in cpm_lib._layer_defs(cfg):
+        base, stage = name.split("_")
+        trunk = stage in ("stage1", "stage2")
+        n = cfg.input_size
+        for _ in range(TRUNK_POOLS.get(base, 3) if trunk else 3):
+            n = -(-n // 2)
+        hw[name] = n
+    return hw
+
+
+def int8_launches(qcpm, cfg: CPMConfig, batch: int, dynamic: bool) -> dict:
+    """B2's launches in one int8 CPM forward of ``batch`` frames: one
+    quantize pass per 1×1 conv, one fused gather per tile of every k×k
+    conv (``ops/quantize._tiles``, as ``int8_conv`` cuts it), and with
+    dynamic scales one abs-max pass per conv."""
+    hw = conv_input_hw(cfg)
+    count = {"quantize_act": 0, "quantize_im2col": 0,
+             "quantize_act_absmax": 0}
+    for name, layer in qcpm.named_children():
+        count["quantize_act_absmax"] += int(dynamic)
+        if layer.kernel_size == 1:
+            count["quantize_act"] += 1
+            continue
+        n_pad, k_pad = layer.w_int8.shape
+        h = hw[name]
+        count["quantize_im2col"] += len(list(quantize_lib._tiles(
+            batch, h, h * (k_pad + 8 * n_pad))))
+    return count
 
 
 def check_result(res, b: int) -> None:
@@ -241,8 +287,8 @@ def phase_graph_replay() -> dict:
 
 
 def _planted(batch: int, seed: int) -> torch.Tensor:
-    """(B, 46, 46, 15) maps with one planted peak per part, NHWC views of
-    NCHW memory like the CPM's output."""
+    """(B, 46, 46, 15) maps with one planted peak per part, as an NHWC
+    view of NCHW memory (``_layout`` makes them NHWC memory)."""
     rng = np.random.RandomState(seed)
     hm = rng.rand(batch, 15, 46, 46).astype(np.float32)
     for b in range(batch):
@@ -265,38 +311,70 @@ def soft_argmax_bound_ms(batch: int, h: int = 46, w: int = 46,
                                  else "operations")
 
 
+def _delta(layout: str) -> torch.Tensor:
+    """One 10.0 in part 0 of a zero map: decodes exactly to its cell."""
+    hm = torch.zeros(1, 15, 46, 46, device=DEVICE)
+    hm[0, 0, 20, 33] = 10.0
+    return _layout(hm.permute(0, 2, 3, 1), layout)
+
+
+def _layout(hm: torch.Tensor, layout: str) -> torch.Tensor:
+    """NHWC memory ("nhwc"), what both paths' CPMs give on the card
+    (``breakdown.heatmaps_layout``), or an NHWC view of NCHW memory
+    ("nchw_view"), where each map is one contiguous run."""
+    return hm.contiguous() if layout == "nhwc" else hm
+
+
+SA_LAYOUTS = ("nhwc", "nchw_view")
+
+
 def phase_soft_argmax_check() -> dict:
-    """Kernel vs plain version at the main path's shapes (B = 1, 8, 128),
-    an odd batch, an NHWC-contiguous layout and the delta peak."""
-    cases = {f"b{b}": (_planted(b, b), 100.0) for b in (1, 8, 128)}
-    cases["odd_b3_beta50"] = (_planted(3, 3), 50.0)
-    cases["nhwc_contiguous_b8"] = (_planted(8, 11).contiguous(), 100.0)
-    delta = torch.zeros(1, 46, 46, 15, device=DEVICE)
-    delta[0, 20, 33, 0] = 10.0
-    cases["delta_peak"] = (delta, 100.0)
+    """Kernel vs plain version in both heatmap layouts: the main paths'
+    batches (1, 8, 16, 128), an odd batch, the delta peak (exact) and a
+    NaN in one map (NaN in that part only, as the plain version)."""
+    cases = {}
+    for layout in SA_LAYOUTS:
+        for b in (1, 8, 16, 128):
+            cases[f"{layout}_b{b}"] = (_layout(_planted(b, b), layout), 100.0)
+        cases[f"{layout}_odd_b3_beta50"] = (_layout(_planted(3, 3), layout),
+                                            50.0)
+        cases[f"{layout}_delta_peak"] = (_delta(layout), 100.0)
+        nan = _layout(_planted(2, 4), layout)
+        nan[1, 7, 9, 3] = float("nan")
+        cases[f"{layout}_nan_map"] = (nan, 100.0)
     worst = 0.0
     for name, (hm, beta) in cases.items():
         j_k, c_k = cuda_kernels.soft_argmax_cuda(hm, beta=beta, stride=8)
         torch.cuda.synchronize()
         j_p, c_p = softargmax_lib.soft_argmax(hm, beta=beta, stride=8)
+        if name.endswith("nan_map"):
+            check(bool(torch.isnan(c_k[1, 3]) and torch.isnan(j_k[1, 3]).all()
+                       and int(torch.isnan(c_k).sum()) == 1),
+                  f"{name}: NaN reaches that part's joint and conf only")
+            keep = ~torch.isnan(c_p)
+            j_k, j_p, c_k, c_p = j_k[keep], j_p[keep], c_k[keep], c_p[keep]
         ok_j, err_j = close(j_k, j_p, **SA_JOINT_TOL)
         ok_c, err_c = close(c_k, c_p, **SA_CONF_TOL)
         emit({"phase": "soft_argmax_check", "case": name,
               "shape": list(hm.shape), "max_abs_err_joints_px": err_j,
               "max_abs_err_conf": err_c, "ok": ok_j and ok_c})
         check(ok_j and ok_c, f"soft_argmax kernel vs plain, {name}")
-        if name == "delta_peak":
-            ok, err = close(j_k[0, 0], torch.tensor([33.0 * 8, 20.0 * 8]),
-                            0.0, 1e-3)
-            check(ok, f"delta peak decodes to its cell corner ({err})")
+        if name.endswith("delta_peak"):
+            check(j_k[0, 0].tolist() == [33.0 * 8, 20.0 * 8],
+                  f"{name} decodes exactly to its cell corner: "
+                  f"{j_k[0, 0].tolist()}")
         worst = max(worst, err_j, err_c)
     return {"max_abs_err": worst}
 
 
 def phase_soft_argmax_timing(replay: dict) -> dict:
+    """B1 and its plain version in both layouts: NHWC memory at the paths'
+    batches (the bf16 path decodes B = 1..128 at once, the int8 path a
+    chunk of 16), and the NCHW view."""
     rows = {}
-    for b in (1, 8, 128):
-        hm = _planted(b, 100 + b)
+    for layout, b in (("nhwc", 1), ("nhwc", 8), ("nhwc", 16), ("nhwc", 128),
+                      ("nchw_view", 8), ("nchw_view", 128)):
+        hm = _layout(_planted(b, 100 + b), layout)
         def kernel():
             return cuda_kernels.soft_argmax_cuda(hm, 100.0, 8)
 
@@ -304,17 +382,17 @@ def phase_soft_argmax_timing(replay: dict) -> dict:
             return softargmax_lib.soft_argmax(hm, 100.0, 8)
 
         bound, bound_by = soft_argmax_bound_ms(b)
-        rows[b] = {"ms": cuda_ms(kernel, cold_l2=True),
-                   "plain_ms": cuda_ms(plain, cold_l2=True),
-                   "bound_ms": bound, "bound_by": bound_by,
-                   "l2_warm_ms": cuda_ms(kernel, cold_l2=False),
-                   "plain_l2_warm_ms": cuda_ms(plain, cold_l2=False),
-                   "eager_ms": eager_ms(kernel),
-                   "plain_eager_ms": eager_ms(plain),
-                   "replay_ms": replay["cold_ms"],
-                   "replay_l2_warm_ms": replay["warm_ms"]}
-        emit({"phase": "soft_argmax_timing", "batch": b, **rows[b],
-              "library_ms": None})
+        rows[layout, b] = {
+            "ms": cuda_ms(kernel, cold_l2=True),
+            "plain_ms": cuda_ms(plain, cold_l2=True),
+            "bound_ms": bound, "bound_by": bound_by,
+            "l2_warm_ms": cuda_ms(kernel, cold_l2=False),
+            "plain_l2_warm_ms": cuda_ms(plain, cold_l2=False),
+            "eager_ms": eager_ms(kernel), "plain_eager_ms": eager_ms(plain),
+            "replay_ms": replay["cold_ms"],
+            "replay_l2_warm_ms": replay["warm_ms"]}
+        emit({"phase": "soft_argmax_timing", "layout": layout, "batch": b,
+              **rows[layout, b], "library_ms": None})
     return rows
 
 
@@ -323,12 +401,14 @@ def _images(batch: int, size: int, seed: int) -> np.ndarray:
         0, 256, (batch, size, size, 3)).astype(np.uint8)
 
 
+B2_NONE = {"quantize_act": 0, "quantize_im2col": 0, "quantize_act_absmax": 0}
+
+
 def phase_main_path(est: PoseEstimator, images: np.ndarray,
-                    phase: str = "main_path", quantize_launches: int = 0):
+                    phase: str = "main_path", b2_launches: dict = B2_NONE):
     """One warm-up and three timed estimate_and_fit calls, with the launch
-    counts zeroed just before and read just after. ``quantize_launches``
-    is the number of B2 launches the calls must make (static scales, so
-    no abs-max pass)."""
+    counts zeroed just before and read just after. ``b2_launches``: the
+    launches of B2's kernels the four calls must make."""
     calls = 4
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
@@ -346,10 +426,9 @@ def phase_main_path(est: PoseEstimator, images: np.ndarray,
     check(launches["soft_argmax"] >= calls,
           f"soft_argmax launched {launches['soft_argmax']} times in "
           f"{calls} estimate_and_fit calls")
-    check(launches["quantize_act"] == quantize_launches
-          and launches["quantize_act_absmax"] == 0,
-          f"{phase}: quantize_act launched {launches} times, expected "
-          f"{quantize_launches} quantize and 0 abs-max launches")
+    b2 = {k: launches[k] for k in b2_launches}
+    check(b2 == b2_launches, f"{phase}: B2 launched {b2}, expected "
+          f"{b2_launches}")
     emit({"phase": phase, "batch": b, "calls": calls,
           "launches": launches, "seconds_per_call": seconds,
           "frames_per_s": [b / s for s in seconds],
@@ -381,6 +460,8 @@ def phase_breakdown(est: PoseEstimator, images: np.ndarray) -> None:
             est.smpl_model, out["fit"].beta, out["fit"].theta,
             precision=smpl_lib.EXACT_PRECISION))
     emit({"phase": "breakdown", "batch": images.shape[0],
+          "heatmaps_layout": ("nhwc" if out["hm"].is_contiguous()
+                              else "nchw_view"),
           "preprocess_cpm_s": t_cpm, "decode_s": t_dec, "fit_s": t_fit,
           "mesh_s": t_mesh,
           "fit_steps": sum(s.iters for s in est.fit_cfg.stages)})
@@ -467,8 +548,8 @@ def quantize_bound_ms(numel: int, in_bytes: int, reads: int = 1):
 
 
 def phase_quantize_act_timing(replay: dict) -> dict:
-    """The three main B2 shapes at batch 16: the kernel with a static and
-    a dynamic scale, its plain version, and torch.quantize_per_tensor —
+    """The 1×1 convs' inputs at batch 16: the quantize pass with a static
+    and a dynamic scale, its plain version, and torch.quantize_per_tensor —
     the nearest single library call, not the same function (range
     −128..127; takes float32 only, so it reads a float32 copy of a bf16
     input); the count of its values that differ from the kernel's is
@@ -516,12 +597,185 @@ def phase_quantize_act_timing(replay: dict) -> dict:
     return rows
 
 
+# Every k×k conv input of the int8 path per chunk of 16 frames, the input
+# of kernel B2's fused gather: (shape, dtype, k, output channels).
+IM2COL_SHAPES = {
+    "conv1_368x368x3_f32_k9": ((16, 368, 368, 3), torch.float32, 9, 128),
+    "trunk_184x184x128_bf16_k9": ((16, 184, 184, 128), torch.bfloat16, 9,
+                                  128),
+    "trunk_92x92x128_bf16_k9": ((16, 92, 92, 128), torch.bfloat16, 9, 128),
+    "conv4_46x46x128_bf16_k5": ((16, 46, 46, 128), torch.bfloat16, 5, 32),
+    "conv5_46x46x32_bf16_k9": ((16, 46, 46, 32), torch.bfloat16, 9, 512),
+    "mconv1_46x46x48_f32_k11": ((16, 46, 46, 48), torch.float32, 11, 128),
+    "mconv2_46x46x128_bf16_k11": ((16, 46, 46, 128), torch.bfloat16, 11,
+                                  128),
+}
+IM2COL_TIMED = ("trunk_184x184x128_bf16_k9", "mconv2_46x46x128_bf16_k11",
+                "conv1_368x368x3_f32_k9")
+IM2COL_KERNEL_ROW = "trunk_184x184x128_bf16_k9"   # the kernels line's
+
+
+def _pad8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
+def im2col_tiles(shape, k: int, n: int) -> list:
+    """The tiles ``int8_conv`` cuts a conv of this input into."""
+    b, h, w, c = shape
+    return list(quantize_lib._tiles(b, h, w * (_pad8(k * k * c)
+                                               + 8 * _pad8(n))))
+
+
+def _rows_buffer(x: torch.Tensor, k: int, tile) -> torch.Tensor:
+    b0, b1, h0, h1 = tile
+    return torch.empty(((b1 - b0) * (h1 - h0) * x.shape[2],
+                        _pad8(k * k * x.shape[3])), dtype=torch.int8,
+                       device=x.device)
+
+
+def _im2col_cases():
+    """(name, input, static scale or None, k, tiles): every k×k input of
+    the int8 path at batch 16 with all of its tiles, static and dynamic;
+    row-split tiles; a channels-last view with an odd row stride and an
+    unaligned start; half-way values; all zeros; int8 input."""
+    for i, (name, (shape, dtype, k, n)) in enumerate(IM2COL_SHAPES.items()):
+        x = _act(shape, dtype, 200 + i)
+        tiles = im2col_tiles(shape, k, n)
+        yield f"{name}_static", x, torch.tensor(0.05, device=DEVICE), k, tiles
+        yield f"{name}_dynamic", x, None, k, tiles
+    x = _act((16, 184, 184, 128), torch.bfloat16, 210)
+    yield "row_split_tiles", x, None, 9, [(3, 4, 50, 61), (15, 16, 170, 184)]
+    x = _act((16, 46, 46, 131), torch.bfloat16, 211)[..., 3:]
+    yield "strided_view_46x46x128", x, None, 11, [(0, 16, 0, 46)]
+    g = torch.Generator(device=DEVICE).manual_seed(212)
+    half = torch.randint(-120, 120, (16, 46, 46, 48), generator=g,
+                         device=DEVICE).float() + 0.5
+    for dtype in (torch.float32, torch.bfloat16):
+        yield (f"halfway_{str(dtype)[6:]}", (half * 0.25).to(dtype),
+               torch.tensor(0.25, device=DEVICE), 11, [(0, 16, 0, 46)])
+    yield ("zeros_dynamic", torch.zeros(16, 46, 46, 48, device=DEVICE), None,
+           11, [(0, 16, 0, 46)])
+    q = torch.randint(-127, 128, (16, 46, 46, 128), generator=g,
+                      device=DEVICE).to(torch.int8)
+    yield "int8_input", q, None, 11, im2col_tiles(q.shape, 11, 128)
+
+
+def phase_quantize_im2col_check() -> dict:
+    """B2's fused quantize-and-gather against its plain version, bit for
+    bit, on every tile of every case: the rows (torch.equal) and, with a
+    dynamic scale, the scale of the whole tensor (==)."""
+    worst = 0
+    for name, x, a_scale, k, tiles in _im2col_cases():
+        scale = None
+        if x.dtype != torch.int8:
+            scale = cuda_kernels.act_scale_cuda(x, a_scale)
+            check(scale.item() == quantize_lib.act_scale(x, a_scale).item(),
+                  f"quantize_im2col {name}: scale")
+        exact, err = True, 0
+        for tile in tiles:
+            got = cuda_kernels.quantize_im2col_cuda(
+                x, scale, k, tile, _rows_buffer(x, k, tile).fill_(99))
+            torch.cuda.synchronize()
+            want = quantize_lib.quantize_im2col(x, scale, k, tile,
+                                                _rows_buffer(x, k, tile))
+            exact = exact and torch.equal(got, want)
+            err = max(err, int((got.int() - want.int()).abs().max()))
+        emit({"phase": "quantize_im2col_check", "case": name,
+              "shape": list(x.shape), "dtype": str(x.dtype)[6:], "k": k,
+              "tiles": len(tiles),
+              "scale": None if scale is None else scale.item(),
+              "max_abs_err_int8": err, "ok": exact})
+        check(exact, f"quantize_im2col kernel vs plain, {name}")
+        if name == "zeros_dynamic":
+            check(scale.item() == np.float32(1e-12), "the 1e-12 scale floor")
+        worst = max(worst, err)
+    return {"max_abs_err": worst}
+
+
+def im2col_bound_ms(x: torch.Tensor, k: int, tile):
+    """Least time for one tile's fused gather on this card: the tile's
+    rows written once and the input rows they cover read once, over HBM,
+    against ~6 float32 operations per value read (quantize)."""
+    b0, b1, h0, h1 = tile
+    _, h, w, c = x.shape
+    p = k // 2
+    read = (b1 - b0) * (min(h1 + p, h) - max(h0 - p, 0)) * w * c
+    write = (b1 - b0) * (h1 - h0) * w * _pad8(k * k * c)
+    t_bytes = (read * x.element_size() + write) / HBM_BYTES_PER_S * 1e3
+    t_ops = 6 * read / F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def unfused_route(x: torch.Tensor, scale, k: int, tile,
+                  out: torch.Tensor):
+    """The unfused route to the same rows, which ``int8_conv`` took
+    before the gather: B2's standalone quantize pass over the tile's
+    images, ``F.pad``, and the ``unfold`` copy."""
+    b0, b1, h0, h1 = tile
+    p, c = k // 2, x.shape[3]
+    q = F.pad(cuda_kernels.quantize_act_cuda(x[b0:b1], scale)[0],
+              (0, 0, p, p, p, p))
+    win = q[:, h0:h1 + k - 1].unfold(1, k, 1).unfold(2, k, 1)
+    out[:, :k * k * c].view(b1 - b0, h1 - h0, x.shape[2], k, k, c).copy_(
+        win.permute(0, 1, 2, 4, 5, 3))
+    return out
+
+
+def phase_quantize_im2col_timing(replay: dict) -> dict:
+    """The fused gather at three tiles of the int8 path (batch 16): the
+    first tile of conv2 (one 184² image, 9×9×128), of Mconv2 (15 images
+    of 46², 11×11×128) and of conv1 (three 368² f32 images, C = 3);
+    against its byte bound, the unfused route for the same tile and the
+    plain version, L2 flushed and warm."""
+    rows = {}
+    for name in IM2COL_TIMED:
+        shape, dtype, k, n = IM2COL_SHAPES[name]
+        x = _act(shape, dtype, 300)
+        scale = quantize_lib.act_scale(x)
+        tile = im2col_tiles(shape, k, n)[0]
+        out = _rows_buffer(x, k, tile)
+        k_real = k * k * shape[3]           # the route leaves K_pad alone
+        route_rows = unfused_route(x, scale, k, tile, out.clone())
+        gathered = cuda_kernels.quantize_im2col_cuda(x, scale, k, tile, out)
+        check(torch.equal(route_rows[:, :k_real], gathered[:, :k_real]),
+              f"the unfused route gives the kernel's rows, {name}")
+
+        def kernel():
+            return cuda_kernels.quantize_im2col_cuda(x, scale, k, tile, out)
+
+        def route():
+            return unfused_route(x, scale, k, tile, out)
+
+        def plain():
+            return quantize_lib.quantize_im2col(x, scale, k, tile, out)
+
+        bound, bound_by = im2col_bound_ms(x, k, tile)
+        rows[name] = {"ms": cuda_ms(kernel, cold_l2=True),
+                      "l2_warm_ms": cuda_ms(kernel, cold_l2=False),
+                      "unfused_route_ms": cuda_ms(route, cold_l2=True),
+                      "unfused_route_l2_warm_ms": cuda_ms(route,
+                                                          cold_l2=False),
+                      "plain_ms": cuda_ms(plain, cold_l2=True),
+                      "plain_l2_warm_ms": cuda_ms(plain, cold_l2=False),
+                      "bound_ms": bound, "bound_by": bound_by,
+                      "library_ms": None, "replay_ms": replay["cold_ms"],
+                      "tile": list(tile), "rows_mb": out.numel() / 1e6}
+        emit({"phase": "quantize_im2col_timing", "name": name,
+              "shape": list(shape), "dtype": str(dtype)[6:], "k": k,
+              **rows[name]})
+    return rows
+
+
 def phase_int8_dynamic(images: np.ndarray) -> None:
     """A quantize=True estimator without calibration frames (dynamic
-    scales) at batch 16: one call, both B2 passes launched per conv."""
+    scales) at batch 16: one call; one abs-max pass per conv, then a
+    quantize pass per 1×1 conv and a fused gather per tile of the
+    others."""
     est = PoseEstimator.create_synthetic(seed=0, cpm_cfg=MAIN_CPM,
                                          quantize=True, device=DEVICE)
-    n_conv = len(list(est.cpm.children()))
+    want = {"soft_argmax": 1, **int8_launches(est.cpm, MAIN_CPM,
+                                                 images.shape[0], True)}
     zero_counts()
     t0 = time.perf_counter()
     res = est.estimate_and_fit(images)
@@ -529,9 +783,8 @@ def phase_int8_dynamic(images: np.ndarray) -> None:
     seconds = time.perf_counter() - t0
     launches = read_counts()
     check_result(res, images.shape[0])
-    check(launches == {"soft_argmax": 1, "quantize_act": n_conv,
-                       "quantize_act_absmax": n_conv},
-          f"dynamic-scale int8 call launched {launches}")
+    check(launches == want, f"dynamic-scale int8 call launched {launches}, "
+          f"expected {want}")
     emit({"phase": "int8_dynamic", "batch": images.shape[0],
           "launches": launches, "seconds": seconds})
 
@@ -544,8 +797,7 @@ def phase_int8_small_batch(est: PoseEstimator, images: np.ndarray) -> None:
     torch.cuda.synchronize()
     launches = read_counts()
     check_result(res, images.shape[0])
-    check(launches == {"soft_argmax": 1, "quantize_act": 0,
-                       "quantize_act_absmax": 0},
+    check(launches == {"soft_argmax": 1, **B2_NONE},
           f"batch-{images.shape[0]} call on the int8 estimator launched "
           f"{launches}")
     emit({"phase": "int8_small_batch", "batch": images.shape[0],
@@ -556,7 +808,9 @@ def phase_int8_breakdown(est: PoseEstimator, images: np.ndarray) -> None:
     """Preprocess + CPM at batch 16 through the int8 and the bf16 CPM of
     the same estimator, in turns (int8, bf16, bf16, int8 after a warm-up
     of each), host clock around synchronized calls; then one int8 CPM
-    forward under torch.profiler, device time by kernel."""
+    forward under torch.profiler, device time by kernel, and the conv
+    inputs that are not NHWC memory (which B2 would copy: the gather
+    reads any channels-last strides, the abs-max pass dense memory)."""
     cfg = est.cpm_cfg
     x_u8 = torch.from_numpy(images).to(DEVICE)
 
@@ -572,6 +826,15 @@ def phase_int8_breakdown(est: PoseEstimator, images: np.ndarray) -> None:
     modules = {"int8": est.cpm, "bf16": est.cpm_bf16}
     for m in modules.values():
         cpm(m)
+    dense = {}
+    with torch.no_grad():
+        x = pre.preprocess(x_u8, cfg.input_size)
+        cm = pre.gaussian_center_map(cfg.input_size, cfg.center_sigma,
+                                     device=x.device)
+        cpm_lib.cpm_forward(est.cpm, x, cm.expand(x.shape[0], *cm.shape),
+                            cfg, on_conv_input=lambda n, h: dense.update(
+                                {n: h.permute(0, 2, 3, 1).is_contiguous()}))
+    not_nhwc = [name for name, ok in dense.items() if not ok]
     times = {"int8": [], "bf16": []}
     for name in ("int8", "bf16", "bf16", "int8"):
         times[name].append(host_s(lambda: cpm(modules[name])))
@@ -589,8 +852,13 @@ def phase_int8_breakdown(est: PoseEstimator, images: np.ndarray) -> None:
           / statistics.mean(times["bf16"]),
           "int8_cpm_device_s": (sum(r[2] for r in rows) / 1e6 if rows
                                 else "not measured"),
+          "conv_inputs_not_nhwc": not_nhwc,
+          "int8_cpm_b2_device_ms": {
+              name: sum(t for k, _, t in rows if name in k) / 1e3
+              for name in ("im2col_kernel", "quantize_kernel",
+                           "scale_kernel")},
           "int8_cpm_top": [{"name": k[:80], "count": n, "device_ms": t / 1e3}
-                           for k, n, t in rows[:10]]})
+                           for k, n, t in rows[:12]]})
 
 
 def phase_int8_small_reference() -> None:
@@ -763,6 +1031,8 @@ def main() -> int:
     timing = phase_soft_argmax_timing(replay)
     q_err = phase_quantize_act_check()
     q_timing = phase_quantize_act_timing(replay)
+    g_err = phase_quantize_im2col_check()
+    g_timing = phase_quantize_im2col_timing(replay)
 
     t0 = time.perf_counter()
     est = PoseEstimator.create_synthetic(seed=0, cpm_cfg=MAIN_CPM,
@@ -782,20 +1052,26 @@ def main() -> int:
         seed=0, cpm_cfg=MAIN_CPM, quantize=True,
         calibration_images=_images(8, MAIN_CPM.input_size, seed=1),
         cpm_microbatch=INT8_CHUNK, device=DEVICE)
-    n_conv = len(list(est8.cpm.children()))
+    per_chunk = int8_launches(est8.cpm, MAIN_CPM, INT8_CHUNK, False)
     emit({"phase": "create_int8", "seconds": time.perf_counter() - t0,
-          "conv_layers": n_conv, "int8_min_batch": est8.int8_min_batch,
+          "conv_layers": len(list(est8.cpm.children())),
+          "b2_launches_per_chunk": per_chunk,
+          "int8_min_batch": est8.int8_min_batch,
           "cpm_microbatch": est8.cpm_microbatch})
     images8 = _images(INT8_BATCH, MAIN_CPM.input_size, seed=2)
-    chunks, calls = INT8_BATCH // INT8_CHUNK, 4
-    _, launches8 = phase_main_path(est8, images8, "int8_main_path",
-                                   quantize_launches=n_conv * chunks * calls)
+    runs = INT8_BATCH // INT8_CHUNK * 4            # chunks × calls
+    _, launches8 = phase_main_path(
+        est8, images8, "int8_main_path",
+        {k: n * runs for k, n in per_chunk.items()})
     phase_int8_dynamic(images8[:INT8_CHUNK])
     phase_int8_small_batch(est8, images8[:MAIN_BATCH])
     phase_int8_breakdown(est8, images8[:INT8_CHUNK])
     phase_int8_small_reference()
 
     q_row = q_timing[QUANT_KERNEL_ROW]
+    g_row = g_timing[IM2COL_KERNEL_ROW]
+    sa_row = timing["nhwc", MAIN_BATCH]
+    sa_nchw = timing["nchw_view", MAIN_BATCH]
     emit({"kernels": [{
         "name": "soft_argmax", "route": "cuda",
         "source": "tpu_pose_torch/csrc/soft_argmax.cu",
@@ -803,12 +1079,12 @@ def main() -> int:
         "launches": launches["soft_argmax"],
         "launches_int8_path": launches8["soft_argmax"],
         "max_abs_err": err["max_abs_err"],
-        "ms": timing[MAIN_BATCH]["ms"],
-        "plain_ms": timing[MAIN_BATCH]["plain_ms"],
-        "bound_ms": timing[MAIN_BATCH]["bound_ms"],
-        "bound_by": timing[MAIN_BATCH]["bound_by"],
+        "ms": sa_row["ms"], "plain_ms": sa_row["plain_ms"],
+        "bound_ms": sa_row["bound_ms"], "bound_by": sa_row["bound_by"],
         "library_ms": None, "replay_ms": replay["cold_ms"],
-        "batch": MAIN_BATCH, "card": card}, {
+        "batch": MAIN_BATCH, "layout": "nhwc",
+        "nchw_view_ms": sa_nchw["ms"],
+        "card": card}, {
         "name": "quantize_act", "route": "cuda",
         "source": "tpu_pose_torch/csrc/quantize_act.cu",
         "replaces": "tpu_pose/ops/pallas_kernels.py:119",
@@ -819,7 +1095,18 @@ def main() -> int:
         "library_ms": q_row["library_ms"], "replay_ms": replay["cold_ms"],
         "dynamic_ms": q_row["dynamic_ms"],
         "shape": list(QUANT_SHAPES[QUANT_KERNEL_ROW][0]),
-        "batch": INT8_CHUNK, "card": card}]})
+        "batch": INT8_CHUNK, "card": card}, {
+        "name": "quantize_im2col", "route": "cuda",
+        "source": "tpu_pose_torch/csrc/quantize_act.cu",
+        "replaces": "tpu_pose/ops/pallas_kernels.py:119",
+        "launches": launches8["quantize_im2col"],
+        "max_abs_err": g_err["max_abs_err"],
+        "ms": g_row["ms"], "plain_ms": g_row["plain_ms"],
+        "bound_ms": g_row["bound_ms"], "bound_by": g_row["bound_by"],
+        "library_ms": None, "replay_ms": replay["cold_ms"],
+        "unfused_route_ms": g_row["unfused_route_ms"],
+        "shape": list(IM2COL_SHAPES[IM2COL_KERNEL_ROW][0]),
+        "tile": g_row["tile"], "card": card}]})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

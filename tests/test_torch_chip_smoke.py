@@ -64,3 +64,54 @@ def test_kernel_rows_count_device_time_once():
     rows = chip_smoke.kernel_rows(events)
     assert rows == [("gemm", 1, 80.0), ("elementwise_kernel", 3, 55.0)]
     assert sum(r[2] for r in rows) == 135.0
+
+
+def test_conv_input_hw_matches_the_forward():
+    """The conv input sizes the launch counts are computed from are those
+    a forward sees, for the full model (368: 184, 92, 46 after the pools)
+    and a small one with an odd size (ceil halving)."""
+    from tpu_pose_torch.models import cpm as cpm_lib
+    from tpu_pose_torch.utils.config import CPMConfig
+    hw = chip_smoke.conv_input_hw(CPMConfig())
+    assert (hw["conv1_stage2"], hw["conv2_stage1"], hw["conv3_stage2"],
+            hw["conv4_stage1"], hw["Mconv5_stage6"]) == (368, 184, 92, 46, 46)
+    cfg = CPMConfig(input_size=36, features=8, stage1_head_width=16,
+                    refine_width=8, num_stages=2, compute_dtype="float32")
+    seen = {}
+    with torch.no_grad():
+        cpm_lib.cpm_forward(cpm_lib.init_cpm_params(0, cfg, device="cpu"),
+                            torch.zeros(1, 36, 36, 3),
+                            torch.zeros(1, 36, 36, 1), cfg,
+                            on_conv_input=lambda n, h: seen.update(
+                                {n: h.shape[-1]}))
+    assert chip_smoke.conv_input_hw(cfg) == seen
+
+
+def test_int8_launches_per_chunk():
+    """B2's launches per chunk of 16 at full width: a quantize pass for
+    each of the 12 1×1 convs, one fused gather per tile of the 28 others
+    (84, from int8_conv's tiling), and 40 abs-max passes with dynamic
+    scales; and what the tiling gives at another budget."""
+    from tpu_pose_torch.models import cpm as cpm_lib
+    from tpu_pose_torch.utils.config import CPMConfig
+    q = cpm_lib.QuantizedCPM(CPMConfig())
+    assert chip_smoke.int8_launches(q, CPMConfig(), 16, False) == {
+        "quantize_act": 12, "quantize_im2col": 84, "quantize_act_absmax": 0}
+    assert chip_smoke.int8_launches(q, CPMConfig(), 16, True)[
+        "quantize_act_absmax"] == 40
+    assert chip_smoke.im2col_tiles((16, 184, 184, 128), 9, 128)[:2] == [
+        (0, 1, 0, 184), (1, 2, 0, 184)]
+    assert chip_smoke.im2col_tiles((16, 368, 368, 3), 9, 128)[-2:] == [
+        (12, 15, 0, 368), (15, 16, 0, 368)]
+
+
+def test_im2col_bound_counts_rows_written_and_input_read():
+    """The gather's byte bound: the tile's rows (m × K_pad) written once
+    plus the input rows the tile covers (its rows and k//2 more on each
+    side inside the image) read once, over 3.35 TB/s."""
+    x = torch.zeros(4, 10, 6, 3, dtype=torch.float32)
+    bound, by = chip_smoke.im2col_bound_ms(x, 5, (1, 2, 0, 4))
+    read = 1 * 6 * 6 * 3 * 4                   # rows 0..5
+    write = 1 * 4 * 6 * 80                      # K 75 -> 80
+    assert by == "bytes"
+    assert bound == pytest.approx((read + write) / 3.35e12 * 1e3)

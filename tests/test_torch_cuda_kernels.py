@@ -29,8 +29,8 @@ C_TOL = dict(rtol=1e-6, atol=1e-6)
 
 
 def _planted(batch, seed=0):
-    """(B, 46, 46, 15) NHWC view of NCHW memory (the CPM's output layout)
-    with one planted peak per part."""
+    """(B, 46, 46, 15) NHWC view of NCHW memory with one planted peak per
+    part (``.contiguous()`` gives the CPM's NHWC layout)."""
     rng = np.random.RandomState(seed)
     hm = rng.rand(batch, 15, 46, 46).astype(np.float32)
     for b in range(batch):
@@ -39,9 +39,19 @@ def _planted(batch, seed=0):
     return torch.from_numpy(hm).permute(0, 2, 3, 1)
 
 
-def _delta():
-    hm = torch.zeros(1, 46, 46, 15)
-    hm[0, 20, 33, 0] = 10.0
+def _delta(layout="nhwc"):
+    """A single 10.0 in part 0 of a zero map, NHWC-contiguous or as an
+    NHWC view of NCHW memory: the decode must give exactly its cell."""
+    hm = torch.zeros(1, 15, 46, 46)
+    hm[0, 0, 20, 33] = 10.0
+    hm = hm.permute(0, 2, 3, 1)
+    return hm.contiguous() if layout == "nhwc" else hm
+
+
+def _nan_map(layout):
+    hm = _planted(2, 4)
+    hm = hm.contiguous() if layout == "nhwc" else hm
+    hm[1, 7, 9, 3] = float("nan")
     return hm
 
 
@@ -70,19 +80,28 @@ def test_build_dir_in_source_checkout():
 
 
 def test_quantize_wrapper_takes_plain_version_on_cpu():
-    """On a CPU tensor the B2 wrapper is the plain quantizer, static or
-    dynamic, float32 or bf16, and counts no launch."""
+    """On a CPU tensor the B2 wrappers (scale, quantize, fused gather) are
+    their plain versions, static or dynamic, float32 or bf16, and count no
+    launch."""
     x = torch.from_numpy(np.random.RandomState(0).randn(3, 5, 7, 9)
                          .astype(np.float32))
     before = (cuda_kernels.quantize_act_cuda.launches,
-              cuda_kernels.quantize_act_cuda.absmax_launches)
+              cuda_kernels.act_scale_cuda.launches,
+              cuda_kernels.quantize_im2col_cuda.launches)
     for t in (x, x.bfloat16()):
         for a_scale in (None, torch.tensor(0.03)):
             q_w, s_w = cuda_kernels.quantize_act_cuda(t, a_scale)
             q_p, s_p = quantize.quantize_act(t, a_scale)
             assert torch.equal(q_w, q_p) and torch.equal(s_w, s_p)
+            assert torch.equal(cuda_kernels.act_scale_cuda(t, a_scale), s_p)
+            out_w, out_p = (torch.empty(3 * 5 * 7, 81, dtype=torch.int8)
+                            for _ in range(2))
+            cuda_kernels.quantize_im2col_cuda(t, s_p, 3, (0, 3, 0, 5), out_w)
+            quantize.quantize_im2col(t, s_p, 3, (0, 3, 0, 5), out_p)
+            assert torch.equal(out_w, out_p)
     assert (cuda_kernels.quantize_act_cuda.launches,
-            cuda_kernels.quantize_act_cuda.absmax_launches) == before
+            cuda_kernels.act_scale_cuda.launches,
+            cuda_kernels.quantize_im2col_cuda.launches) == before
 
 
 def test_every_source_is_built():
@@ -104,12 +123,23 @@ CASES = {"b1": (lambda: _planted(1), 100.0),
          "b128": (lambda: _planted(128, 128), 100.0),
          "odd_b3_beta50": (lambda: _planted(3, 3), 50.0),
          "nhwc_contiguous_b8": (lambda: _planted(8, 9).contiguous(), 100.0),
-         "delta": (_delta, 100.0)}
+         "nhwc_contiguous_b128": (lambda: _planted(128, 7).contiguous(),
+                                  100.0),
+         "nhwc_sliced_b4": (lambda: torch.cat(
+             [_planted(4, 6), torch.rand(4, 46, 46, 5)], -1)[..., :15], 100.0),
+         "delta": (_delta, 100.0),
+         "delta_nchw": (lambda: _delta("nchw"), 100.0),
+         "nan_nhwc": (lambda: _nan_map("nhwc"), 100.0),
+         "nan_nchw": (lambda: _nan_map("nchw"), 100.0)}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_soft_argmax_kernel_matches_plain(cuda_device, case):
+    """NHWC memory (the CPM's layout), an NHWC view of NCHW memory and a
+    channel slice, any batch, within the reference's tolerances; the
+    delta peak exactly; a NaN in a map makes that part's joint and conf
+    NaN, as the plain version."""
     make, beta = CASES[case]
     x = make().to(cuda_device)
     before = cuda_kernels.soft_argmax_cuda.launches
@@ -119,9 +149,11 @@ def test_soft_argmax_kernel_matches_plain(cuda_device, case):
     j_p, c_p = softargmax.soft_argmax(x, beta=beta, stride=8)
     np.testing.assert_allclose(j_k.cpu().numpy(), j_p.cpu().numpy(), **J_TOL)
     np.testing.assert_allclose(c_k.cpu().numpy(), c_p.cpu().numpy(), **C_TOL)
-    if case == "delta":
-        np.testing.assert_allclose(j_k.cpu().numpy()[0, 0],
-                                   [33 * 8, 20 * 8], atol=1e-3)
+    if case.startswith("delta"):
+        assert j_k[0, 0].tolist() == [33 * 8, 20 * 8]
+    if case.startswith("nan"):            # NaN propagates to that part only
+        assert torch.isnan(c_k[1, 3]) and torch.isnan(j_k[1, 3]).all()
+        assert int(torch.isnan(c_k).sum()) == 1
 
 
 @pytest.mark.cuda
@@ -170,11 +202,11 @@ def test_quantize_act_kernel_matches_plain(cuda_device, case):
     x = x.to(cuda_device)
     a_scale = None if a_scale is None else a_scale.to(cuda_device)
     before = (cuda_kernels.quantize_act_cuda.launches,
-              cuda_kernels.quantize_act_cuda.absmax_launches)
+              cuda_kernels.act_scale_cuda.launches)
     q_k, s_k = cuda_kernels.quantize_act_cuda(x, a_scale)
     torch.cuda.synchronize()
     assert (cuda_kernels.quantize_act_cuda.launches,
-            cuda_kernels.quantize_act_cuda.absmax_launches) == (
+            cuda_kernels.act_scale_cuda.launches) == (
                 before[0] + 1, before[1] + (a_scale is None))
     q_p, s_p = quantize.quantize_act(x, a_scale)
     assert q_k.dtype == torch.int8 and q_k.shape == x.shape
@@ -236,3 +268,143 @@ def test_int_mm_rules_on_the_card(cuda_device):
         torch.ones(3, 248, dtype=torch.int8, device=cuda_device),
         torch.ones(16, 248, dtype=torch.int8, device=cuda_device).t())
     assert got.shape == (3, 16) and bool((got == 248).all())
+
+
+# Every conv input with k > 1 on the int8 path (full width), at batch 2:
+# (shape, dtype, k).
+IM2COL_SHAPES = {
+    "conv1_368x368x3_f32_k9": ((2, 368, 368, 3), torch.float32, 9),
+    "trunk_184x184x128_bf16_k9": ((2, 184, 184, 128), torch.bfloat16, 9),
+    "trunk_92x92x128_bf16_k9": ((2, 92, 92, 128), torch.bfloat16, 9),
+    "conv4_46x46x128_bf16_k5": ((2, 46, 46, 128), torch.bfloat16, 5),
+    "conv5_46x46x32_bf16_k9": ((2, 46, 46, 32), torch.bfloat16, 9),
+    "mconv1_46x46x48_f32_k11": ((2, 46, 46, 48), torch.float32, 11),
+    "mconv2_46x46x128_bf16_k11": ((2, 46, 46, 128), torch.bfloat16, 11),
+    "odd_3x7x9x5_f32_k5": ((3, 7, 9, 5), torch.float32, 5),
+}
+
+
+def _im2col_pair(x, scale, k, tile):
+    """(kernel rows, plain rows) of one tile, from the same CUDA input;
+    the kernel's buffer starts as garbage (torch.empty after filling)."""
+    b, h, w, c = x.shape
+    m = (tile[1] - tile[0]) * (tile[3] - tile[2]) * w
+    k_pad = -(-k * k * c // 8) * 8
+    out_k = torch.full((m, k_pad), 99, dtype=torch.int8, device=x.device)
+    out_p = torch.empty_like(out_k)
+    before = cuda_kernels.quantize_im2col_cuda.launches
+    cuda_kernels.quantize_im2col_cuda(x, scale, k, tile, out_k)
+    torch.cuda.synchronize()
+    assert cuda_kernels.quantize_im2col_cuda.launches == before + 1
+    quantize.quantize_im2col(x, scale, k, tile, out_p)
+    return out_k, out_p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scales", ["static", "dynamic"])
+@pytest.mark.parametrize("case", sorted(IM2COL_SHAPES))
+def test_quantize_im2col_kernel_matches_plain(cuda_device, case, scales):
+    """The fused quantize-and-gather against its plain version, bit for
+    bit, at every int8-path conv shape (whole-batch tile and a tile of
+    rows of one image), with the whole tensor's scale."""
+    shape, dtype, k = IM2COL_SHAPES[case]
+    g = torch.Generator(device=cuda_device).manual_seed(len(case))
+    x = (2.0 * torch.randn(shape, generator=g, device=cuda_device)).to(dtype)
+    a_scale = torch.tensor(0.05, device=cuda_device) \
+        if scales == "static" else None
+    scale = cuda_kernels.act_scale_cuda(x, a_scale)
+    assert scale.item() == quantize.act_scale(x, a_scale).item()
+    h = shape[1]
+    for tile in ((0, shape[0], 0, h), (1, 2, h // 3, h // 3 + 5)):
+        out_k, out_p = _im2col_pair(x, scale, k, tile)
+        assert torch.equal(out_k, out_p), tile
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["strided_view", "halfway_f32",
+                                  "halfway_bf16", "zeros", "int8"])
+def test_quantize_im2col_kernel_special_inputs(cuda_device, case):
+    """A channels-last view with a row stride other than W·C and an
+    unaligned start (scalar loads), values half-way between two steps,
+    all zeros with the 1e-12 scale, and int8 values gathered as they
+    are."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    scale = None
+    if case == "strided_view":
+        base = torch.randn(2, 23, 25, 40, generator=g, device=cuda_device)
+        x = base.bfloat16()[..., 4:36]
+    elif case.startswith("halfway"):
+        k = torch.randint(-120, 120, (2, 23, 25, 32), generator=g,
+                          device=cuda_device).float()
+        x = ((k + 0.5) * 0.25).to(getattr(torch, {"f32": "float32",
+                                                  "bf16": "bfloat16"}[
+                                                      case[8:]]))
+        scale = torch.tensor(0.25, device=cuda_device)
+    elif case == "zeros":
+        x = torch.zeros(2, 23, 25, 48, device=cuda_device)
+    else:
+        x = torch.randint(-127, 128, (2, 23, 25, 48), generator=g,
+                          device=cuda_device).to(torch.int8)
+    if x.dtype != torch.int8 and scale is None:
+        scale = cuda_kernels.act_scale_cuda(x)
+    if case == "zeros":
+        assert scale.item() == np.float32(1e-12)
+    for tile in ((0, 2, 0, 23), (1, 2, 0, 4), (0, 1, 20, 23)):
+        out_k, out_p = _im2col_pair(x, scale, 11 if case == "int8" else 5,
+                                    tile)
+        assert torch.equal(out_k, out_p), tile
+
+
+@pytest.mark.cuda
+def test_quantize_im2col_wrapper_raises(cuda_device):
+    """The wrapper refuses what the kernel does not take, instead of
+    copying or falling back: a channel stride other than 1 (NCHW memory),
+    float16, a float input without a scale, a wrong buffer, a tile
+    outside the tensor."""
+    x = torch.randn(2, 9, 9, 16, device=cuda_device)
+    s = torch.tensor(0.1, device=cuda_device)
+    out = torch.empty(2 * 9 * 9, 400, dtype=torch.int8, device=cuda_device)
+    ok = cuda_kernels.quantize_im2col_cuda(x, s, 5, (0, 2, 0, 9), out)
+    assert ok is out
+    nchw = torch.randn(2, 16, 9, 9, device=cuda_device).permute(0, 2, 3, 1)
+    with pytest.raises(ValueError, match="unit channel stride"):
+        cuda_kernels.quantize_im2col_cuda(nchw, s, 5, (0, 2, 0, 9), out)
+    with pytest.raises(TypeError):
+        cuda_kernels.quantize_im2col_cuda(x.half(), s, 5, (0, 2, 0, 9), out)
+    with pytest.raises(ValueError, match="scale"):
+        cuda_kernels.quantize_im2col_cuda(x, None, 5, (0, 2, 0, 9), out)
+    with pytest.raises(ValueError, match="out must be"):
+        cuda_kernels.quantize_im2col_cuda(x, s, 5, (0, 2, 0, 9), out[:, :392])
+    with pytest.raises(ValueError, match="does not fit"):
+        cuda_kernels.quantize_im2col_cuda(x, s, 5, (0, 3, 0, 9), out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scales", ["static", "dynamic"])
+def test_int8_conv_float_route_cuda_matches_cpu(cuda_device, monkeypatch,
+                                                scales):
+    """int8_conv on float input with the whole tensor's scale: the card's
+    int32 sums equal the CPU's, with one fused gather per tile and no
+    standalone quantize."""
+    monkeypatch.setattr(quantize, "TILE_BYTES", 23 * 2000)
+    rng = np.random.RandomState(4)
+    x = torch.from_numpy(rng.randn(3, 23, 23, 48).astype(np.float32))
+    layer = cpm_lib.QuantizedConv(11, 48, 16)
+    layer.set_weights(torch.from_numpy(
+        rng.randint(-127, 128, (11, 11, 48, 16)).astype(np.int8)),
+        torch.ones(16), torch.zeros(16))
+    tiles = len(list(quantize._tiles(3, 23, 23 * (5808 + 8 * 16))))
+    outs = []
+    for dev in ("cpu", cuda_device):
+        xd = x.to(dev)
+        a = None if scales == "dynamic" else torch.tensor(0.02, device=dev)
+        before = (cuda_kernels.quantize_im2col_cuda.launches,
+                  cuda_kernels.quantize_act_cuda.launches)
+        outs.append(quantize.int8_conv(
+            xd, layer.w_int8.to(dev).t(), 11, 16, lambda acc: acc.double(),
+            torch.float64, cuda_kernels.act_scale_cuda(xd, a)))
+        launched = (cuda_kernels.quantize_im2col_cuda.launches - before[0],
+                    cuda_kernels.quantize_act_cuda.launches - before[1])
+        assert launched == ((tiles, 0) if dev != "cpu" else (0, 0))
+    assert tiles > 3
+    assert torch.equal(outs[0], outs[1].cpu())

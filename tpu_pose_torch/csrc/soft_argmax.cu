@@ -4,7 +4,7 @@
 // Replaces tpu_pose/ops/pallas_kernels.py:soft_argmax_pallas (the Pallas
 // TPU kernel, body _softargmax_kernel). Computes the same function as the
 // plain version tpu_pose_torch/ops/softargmax.py:soft_argmax: for every
-// (image b, part p) belief map x (the background channel is never read)
+// (image b, part p) belief map x (the background channel is never used)
 //   m = max(x),  e = exp(beta * (x - m)),
 //   joint = (sum(e * col) / sum(e) * stride, sum(e * row) / sum(e) * stride),
 //   conf  = m.
@@ -12,27 +12,38 @@
 // no stride/2 is added.
 //
 // What bounds it on an H100: memory traffic, and at the main path's
-// shapes launch latency. It reads the 14 part maps, B*46*46*14*4 bytes
-// (the background map is never touched): 0.95 MB at B = 8, i.e. 0.28 us
-// at HBM's 3.35 TB/s, far below the few microseconds a launch costs;
-// 15.2 MB at B = 128, i.e. 4.5 us. The exps (B*14*2116 of them) are
-// negligible next to the card's float32 rate.
+// shapes launch latency. It reads the 14 part maps, B*46*46*14*4 bytes:
+// 0.95 MB at B = 8, i.e. 0.28 us at HBM's 3.35 TB/s, far below the few
+// microseconds a launch costs; 15.2 MB at B = 128, i.e. 4.5 us. The exps
+// (B*14*2116 of them) are negligible next to the card's float32 rate.
 //
-// Design against that bound: one thread block per (b, p) map. Each map is
-// read from device memory once (pass 1, the max); pass 2 (exp and the
-// three weighted sums) re-reads the same 8.5 KB, which is then served
-// from L1/L2. Nothing is written to device memory between the softmax and
-// the expectation: the probabilities live only in registers, and the
-// reductions are warp shuffles plus a shared-memory step across warps.
-// The kernel takes any strides of the NHWC view, so the CPM's NCHW output
-// (each map one contiguous run of H*W floats, coalesced reads) and an
-// NHWC-contiguous tensor both work without a copy.
+// Design against that bound: one pass. One block of 256 threads per
+// (b, p) map. Every value is read from device memory once, and each
+// thread carries an online softmax state (running max m, and sum(e),
+// sum(e*col), sum(e*row) relative to it). A thread loads its 9 cells of a
+// 46 x 46 map at once, rescales its sums once for their max
+// (exp(beta * (m_old - m_new))) and then takes their exps independently;
+// rows and columns are stepped, not divided out per value. States merge
+// the same way, rescaling only the one with the smaller max, in warp
+// shuffles and then once across warps through shared memory, so a block
+// synchronizes once. The block reads the map through its strides:
+// - NHWC memory, what both paths' CPMs give (their convs keep the
+//   channels-last layout of the NHWC input), at a 60-byte stride (15
+//   floats per pixel): the 14 blocks of an image read the same lines,
+//   which the last conv has just written, so they come from L2;
+// - a map stored as one contiguous run (an NHWC view of NCHW memory):
+//   coalesced. Designs
+//   that read pixels with their channels contiguous (one 1024-thread
+//   block per image keeping one channel's state per thread, or a thread
+//   block cluster of 2-8 blocks per image merging through distributed
+//   shared memory) were measured slower at the int8 path's 16 images per
+//   chunk: an image's work then sits on one SM or waits on the cluster.
+// Special values follow the plain version: a NaN in a map makes its
+// joint and conf NaN (the max propagates NaN), a -inf value weighs 0, and
+// the initial state (m = -inf, sums 0) merges without producing NaN.
 //
 // Full-precision expf on purpose (no --use_fast_math, no __expf): the
 // reference tolerance (rtol 1e-5) and the exact delta-peak decode need it.
-//
-// Making it fast is later work: fuse it into the last conv's epilogue, or
-// one block per image with an online softmax.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -41,86 +52,130 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+// Loads a thread issues before using them: a 46 x 46 map in one round.
+constexpr int kBatch = 9;
 
 // Max that propagates NaN, like jnp.max / torch.amax.
 __device__ __forceinline__ float nan_max(float a, float b) {
   return (a != a || a > b) ? a : b;
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = nan_max(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+struct State {
+  float m, s, sx, sy;
+};
+
+__device__ __forceinline__ State empty_state() {
+  return {-INFINITY, 0.f, 0.f, 0.f};
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+// Step (row, col) on by `q` rows and `rm` columns (rm < w).
+__device__ __forceinline__ void step_cell(int& row, int& col, int q, int rm,
+                                          int w) {
+  col += rm;
+  row += q;
+  if (col >= w) {
+    col -= w;
+    ++row;
+  }
 }
 
+// Only the state with the smaller max is rescaled, so one exp; a NaN max
+// makes the factor, and so the sums, NaN.
+__device__ __forceinline__ State merge(const State& a, const State& b,
+                                       float beta) {
+  const float m = nan_max(a.m, b.m);
+  const bool a_hi = a.m == m;
+  const float lo_m = a_hi ? b.m : a.m;
+  const float r = lo_m == m ? 1.f : expf(beta * (lo_m - m));
+  const float ra = a_hi ? 1.f : r, rb = a_hi ? r : 1.f;
+  return {m, a.s * ra + b.s * rb, a.sx * ra + b.sx * rb,
+          a.sy * ra + b.sy * rb};
+}
+
+__device__ __forceinline__ State warp_merge(State st, float beta) {
+  for (int o = 16; o > 0; o >>= 1) {
+    const State other = {__shfl_xor_sync(0xffffffffu, st.m, o),
+                         __shfl_xor_sync(0xffffffffu, st.s, o),
+                         __shfl_xor_sync(0xffffffffu, st.sx, o),
+                         __shfl_xor_sync(0xffffffffu, st.sy, o)};
+    st = merge(st, other, beta);
+  }
+  return st;
+}
+
+__device__ __forceinline__ void finish(const State& st, float stride,
+                                       float* joint, float* conf) {
+  joint[0] = st.sx / st.s * stride;
+  joint[1] = st.sy / st.s * stride;
+  *conf = st.m;
+}
+
+// Push the cells n = first, first + step, ... < count of one map into
+// the state, K at a time: K loads in flight, one rescale for their max,
+// then K independent exps. (row, col) of cell n is stepped along, once
+// for the loads and again for the sums, so that no index is kept per
+// value.
+template <int K>
+__device__ __forceinline__ void push_cells(State& st, const float* base,
+                                           int first, int step, int count,
+                                           int w, int64_t sh, int64_t sw,
+                                           float beta) {
+  const int q = step / w, rm = step - q * w;
+  int row = first / w, col = first - row * w;
+  for (int n0 = first; n0 < count; n0 += K * step) {
+    const int row0 = row, col0 = col;
+    float v[K];
+    float m = st.m;
+#pragma unroll
+    for (int u = 0; u < K; ++u) {
+      v[u] = n0 + u * step < count ? base[row * sh + col * sw] : -INFINITY;
+      step_cell(row, col, q, rm, w);
+    }
+#pragma unroll
+    for (int u = 0; u < K; ++u) m = nan_max(m, v[u]);
+    if (m != st.m) {  // a new max (or NaN): rescale what was summed
+      const float r = expf(beta * (st.m - m));
+      st.s *= r;
+      st.sx *= r;
+      st.sy *= r;
+      st.m = m;
+    }
+    row = row0;
+    col = col0;
+#pragma unroll
+    for (int u = 0; u < K; ++u) {
+      const float e = v[u] == -INFINITY ? 0.f : expf(beta * (v[u] - m));
+      st.s += e;
+      st.sx += e * (float)col;
+      st.sy += e * (float)row;
+      step_cell(row, col, q, rm, w);
+    }
+  }
+}
+
+// One block per (b, p) map, any strides.
 __global__ void __launch_bounds__(kThreads)
 soft_argmax_kernel(const float* __restrict__ x, float* __restrict__ joints,
                    float* __restrict__ conf, int parts, int h, int w,
-                   int64_t sb, int64_t sh, int64_t sw, int64_t sc,
-                   float beta, float stride) {
-  const int row = blockIdx.x;  // b * parts + p
-  const int b = row / parts;
-  const int p = row - b * parts;
-  const float* map = x + b * sb + p * sc;
-  const int hw = h * w;
+                   int64_t sb, int64_t sh, int64_t sw, int64_t sc, float beta,
+                   float stride) {
+  const int map = blockIdx.x;  // b * parts + p
+  const int b = map / parts;
+  const float* base = x + b * sb + (map - b * parts) * sc;
+  State st = empty_state();
+  push_cells<kBatch>(st, base, threadIdx.x, kThreads, h * w, w, sh,
+                        sw, beta);
+  st = warp_merge(st, beta);
+
+  __shared__ State red[kThreads / 32];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-
-  __shared__ float red[3][kWarps];
-  __shared__ float row_max;
-
-  // Pass 1: the map's max (also the part's confidence).
-  float m = -INFINITY;
-  for (int i = threadIdx.x; i < hw; i += kThreads) {
-    const int r = i / w;
-    const int c = i - r * w;
-    m = nan_max(m, map[r * sh + c * sw]);
-  }
-  m = warp_max(m);
-  if (lane == 0) red[0][warp] = m;
+  if (lane == 0) red[warp] = st;
   __syncthreads();
   if (warp == 0) {
-    m = warp_max(lane < kWarps ? red[0][lane] : -INFINITY);
-    if (lane == 0) row_max = m;
-  }
-  __syncthreads();
-  m = row_max;
-
-  // Pass 2: softmax weights and the two expectations, in registers.
-  float s = 0.f, sx = 0.f, sy = 0.f;
-  for (int i = threadIdx.x; i < hw; i += kThreads) {
-    const int r = i / w;
-    const int c = i - r * w;
-    const float e = expf(beta * (map[r * sh + c * sw] - m));
-    s += e;
-    sx += e * (float)c;
-    sy += e * (float)r;
-  }
-  s = warp_sum(s);
-  sx = warp_sum(sx);
-  sy = warp_sum(sy);
-  __syncthreads();  // red[0] was read above; reuse it
-  if (lane == 0) {
-    red[0][warp] = s;
-    red[1][warp] = sx;
-    red[2][warp] = sy;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    s = warp_sum(lane < kWarps ? red[0][lane] : 0.f);
-    sx = warp_sum(lane < kWarps ? red[1][lane] : 0.f);
-    sy = warp_sum(lane < kWarps ? red[2][lane] : 0.f);
-    if (lane == 0) {
-      joints[2 * row] = sx / s * stride;
-      joints[2 * row + 1] = sy / s * stride;
-      conf[row] = m;
-    }
+    st = warp_merge(lane < kThreads / 32 ? red[lane] : empty_state(),
+                    beta);
+    if (lane == 0) finish(st, stride, joints + 2 * map, conf + map);
   }
 }
 
@@ -135,10 +190,11 @@ extern "C" int soft_argmax_f32(const float* heatmaps, float* joints,
                                int64_t h, int64_t w, int64_t sb, int64_t sh,
                                int64_t sw, int64_t sc, float beta,
                                float stride, void* stream) {
-  const int64_t rows = batch * parts;
-  if (rows <= 0 || rows > 0x7fffffff || h * w > 0x7fffffff)
+  const int64_t maps = batch * parts;
+  if (batch <= 0 || parts <= 0 || maps > 0x7fffffff || h <= 0 || w <= 0 ||
+      h * w > 0x7fffffff - kThreads * kBatch)
     return (int)cudaErrorInvalidValue;
-  soft_argmax_kernel<<<(unsigned)rows, kThreads, 0, (cudaStream_t)stream>>>(
+  soft_argmax_kernel<<<(unsigned)maps, kThreads, 0, (cudaStream_t)stream>>>(
       heatmaps, joints, conf, (int)parts, (int)h, (int)w, sb, sh, sw, sc,
       beta, stride);
   return (int)cudaGetLastError();

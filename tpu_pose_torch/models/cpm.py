@@ -18,9 +18,10 @@ functions take and return NHWC like the JAX package.
 
 The int8 serving path (``quantize_params``, ``calibrate_act_scales``,
 :class:`QuantizedCPM`) runs the same forward with every conv replaced by
-``_conv_q``: quantize the input (kernel B2, ``csrc/quantize_act.cu``),
-int8 × int8 → int32 (``ops/quantize.int8_conv``), float32 epilogue. Its
-activations are NCHW views of NHWC memory, the layout its im2col reads.
+``_conv_q``: quantize the input as its im2col rows are gathered (kernel
+B2, ``csrc/quantize_act.cu``), int8 × int8 → int32
+(``ops/quantize.int8_conv``), float32 epilogue. Its activations are NCHW
+views of NHWC memory, the layout the gather reads.
 """
 
 from __future__ import annotations
@@ -308,20 +309,30 @@ def _pool(x):
 
 def _conv_q(x, layer: QuantizedConv, relu: bool, act_dtype):
     """int8 conv (port of the JAX ``_conv_q``): quantize the NCHW input
-    (through its NHWC view) with kernel B2's wrapper, int8 × int8 → int32,
-    then the float32 epilogue in JAX's order — ``acc * (a_scale *
-    w_scale) + b``, ReLU — cast to ``act_dtype``. Returns an NCHW view of
-    the NHWC output."""
-    q, a_scale = cuda_kernels.quantize_act_cuda(x.permute(0, 2, 3, 1),
-                                                layer.a_scale)
+    (through its NHWC view) with kernel B2, int8 × int8 → int32, then the
+    float32 epilogue in JAX's order — ``acc * (a_scale * w_scale) + b``,
+    ReLU — cast to ``act_dtype``. Returns an NCHW view of the NHWC output.
+
+    The scale is the whole input's (static, or one abs-max pass over all
+    of it). A 1×1 conv quantizes its input in one pass, whose int8 output
+    the GEMM reads as it is; a k×k conv hands the float input and the
+    scale to ``int8_conv``, whose tiles quantize as they gather their
+    im2col rows."""
+    x = x.permute(0, 2, 3, 1)
+    if layer.kernel_size == 1:
+        x, a_scale = cuda_kernels.quantize_act_cuda(x, layer.a_scale)
+        tile_scale = None
+    else:
+        a_scale = tile_scale = cuda_kernels.act_scale_cuda(x, layer.a_scale)
     scale = a_scale * layer.w_scale
 
     def epilogue(acc):
         y = acc.float().mul_(scale).add_(layer.b)
         return torch.relu_(y) if relu else y
 
-    y = quant_lib.int8_conv(q, layer.w_int8.t(), layer.kernel_size,
-                            layer.out_channels, epilogue, act_dtype)
+    y = quant_lib.int8_conv(x, layer.w_int8.t(), layer.kernel_size,
+                            layer.out_channels, epilogue, act_dtype,
+                            tile_scale)
     return y.permute(0, 3, 1, 2)
 
 
@@ -384,6 +395,17 @@ def _refine_forward(c, dtype, images, trunk1, belief1, center_map, cfg,
     return _refine_stages(c, dtype, f, belief1, cmap_lo, n_stages)
 
 
+def _cat_channels(parts):
+    """``torch.cat(parts, dim=1)`` of NCHW tensors, written as NHWC memory
+    when the first part is (the int8 path, whose next conv's gather reads
+    NHWC in place): ``torch.cat`` alone picks NCHW when the parts' layouts
+    differ, as the broadcast center hint's does."""
+    if parts[0].permute(0, 2, 3, 1).is_contiguous():
+        return torch.cat([p.permute(0, 2, 3, 1) for p in parts],
+                         dim=3).permute(0, 3, 1, 2)
+    return torch.cat(parts, dim=1)
+
+
 def _refine_stages(c, dtype, f, belief1, cmap_lo, n_stages):
     """The stage-2..n refinement loop over features ``f``, stage-1 beliefs
     and an optional low-res center hint (all NCHW)."""
@@ -394,7 +416,7 @@ def _refine_stages(c, dtype, f, belief1, cmap_lo, n_stages):
         parts = [c(feat_name, f), prev.to(dtype)]
         if cmap_lo is not None:
             parts.append(cmap_lo)
-        h = torch.cat(parts, dim=1)
+        h = _cat_channels(parts)
         h = c(f"Mconv1_stage{t}", h)
         h = c(f"Mconv2_stage{t}", h)
         h = c(f"Mconv3_stage{t}", h)
@@ -417,11 +439,9 @@ def cpm_forward(cpm, images: torch.Tensor,
       on_conv_input: optional tap ``f(layer_name, input)`` called on every
         conv's input (used by :func:`calibrate_act_scales`).
     Returns:
-      per-stage belief maps, each (B, H, H, P+1) float32. For a CPM each is
-      an NHWC view of the NCHW conv output (every (b, part) map is one
-      contiguous run of H·W floats, which the CUDA decode reads directly);
-      for a QuantizedCPM it is NHWC-contiguous (the decode takes any
-      strides).
+      per-stage belief maps, each (B, H, H, P+1) float32 and
+      NHWC-contiguous: the NCHW convs keep the channels-last layout of
+      the NHWC input (the CUDA decode takes any strides).
     """
     c, dtype = _make_conv(cpm, cfg, on_conv_input)
     x = images.permute(0, 3, 1, 2)

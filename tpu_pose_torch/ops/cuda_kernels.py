@@ -96,14 +96,17 @@ def _library(name: str) -> ctypes.CDLL:
             + [ctypes.c_float] * 2 + [ctypes.c_void_p])
         lib.soft_argmax_f32.restype = ctypes.c_int
     else:
-        lib.quantize_act_absmax.argtypes = [
+        lib.quantize_act_scale.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p,
             ctypes.c_void_p]
-        lib.quantize_act_absmax.restype = ctypes.c_int
         lib.quantize_act_q.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-        lib.quantize_act_q.restype = ctypes.c_int
+            ctypes.c_void_p, ctypes.c_void_p]
+        lib.quantize_act_im2col.argtypes = (
+            [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_int64] * 12
+            + [ctypes.c_void_p] * 3)
+        for fn in ("scale", "q", "im2col"):
+            getattr(lib, f"quantize_act_{fn}").restype = ctypes.c_int
     return lib
 
 
@@ -121,8 +124,9 @@ def soft_argmax_cuda(heatmaps: torch.Tensor, beta: float = 100.0,
     ``(B, P, 2)``, conf ``(B, P)``; the same function as
     ``ops/softargmax.soft_argmax``. On a CUDA tensor it launches
     ``csrc/soft_argmax.cu`` on the current stream (no synchronize); any
-    strides are taken, so the CPM's NCHW-backed heatmap view is read
-    without a copy. On a CPU tensor it runs the plain version."""
+    strides are taken, so the CPM's NHWC heatmaps (or an NHWC view of
+    NCHW memory) are read without a copy. On a CPU tensor it runs the
+    plain version."""
     if heatmaps.device.type == "cpu":
         return softargmax_lib.soft_argmax(heatmaps, beta=beta, stride=stride)
     if heatmaps.device.type != "cuda":
@@ -158,56 +162,148 @@ def soft_argmax_cuda(heatmaps: torch.Tensor, beta: float = 100.0,
 soft_argmax_cuda.launches = 0
 
 
+def _float_activation(name: str, x: torch.Tensor) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name} takes float32 or bfloat16, got {x.dtype}")
+    if x.numel() == 0:
+        raise ValueError(f"{name}: empty tensor")
+
+
+def _dense(x: torch.Tensor) -> torch.Tensor:
+    """``x`` contiguous and 16-byte aligned (the kernels' vector loads)."""
+    x = x.contiguous()
+    return x.clone() if x.data_ptr() % 16 else x
+
+
+def _static_scale(name: str, a_scale, device) -> torch.Tensor:
+    scale = torch.as_tensor(a_scale, dtype=torch.float32, device=device)
+    if scale.dim() != 0:
+        raise ValueError(f"{name}: the scale must be a scalar, got shape "
+                         f"{tuple(scale.shape)}")
+    return scale
+
+
+def act_scale_cuda(x: torch.Tensor, a_scale=None) -> torch.Tensor:
+    """The 0-d float32 per-tensor scale of ``x``; the same function as
+    ``ops/quantize.act_scale``, bit for bit: ``a_scale`` when given (no
+    launch), else ``max(max|x| / 127, 1e-12)`` over the whole tensor. On a
+    CUDA tensor (float32 or bf16) the dynamic scale is kernel B2's abs-max
+    pass (``csrc/quantize_act.cu``, counted in ``.launches``), on the
+    current stream, with no host sync; a non-contiguous input is read
+    through a contiguous copy. On a CPU tensor it runs the plain
+    version."""
+    if x.device.type == "cpu":
+        return quantize_lib.act_scale(x, a_scale)
+    _float_activation("act_scale_cuda", x)
+    if a_scale is not None:
+        return _static_scale("act_scale_cuda", a_scale, x.device)
+    x = _dense(x)
+    scale = torch.zeros((), dtype=torch.float32, device=x.device)
+    lib = _library("quantize_act")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.quantize_act_scale(x.data_ptr(),
+                                    int(x.dtype == torch.bfloat16),
+                                    x.numel(), scale.data_ptr(), stream)
+    _check_launch(lib, "quantize_act", rc)
+    act_scale_cuda.launches += 1
+    return scale
+
+
+act_scale_cuda.launches = 0
+
+
 def quantize_act_cuda(x: torch.Tensor, a_scale=None):
     """Symmetric per-tensor int8 quantization, ``(int8 values in x's
     shape, 0-d float32 scale)``; the same function as
     ``ops/quantize.quantize_act``, bit for bit. ``a_scale``: a calibrated
     static scale (0-d float32 tensor), or None for the dynamic abs-max
-    scale. On a CUDA tensor (float32 or bf16) it launches
-    ``csrc/quantize_act.cu`` on the current stream, no host sync: with a
-    dynamic scale first the abs-max pass (counted in
-    ``.absmax_launches``), then the quantize pass (``.launches``). A
+    scale (:func:`act_scale_cuda`). On a CUDA tensor (float32 or bf16) it
+    launches kernel B2's quantize pass (``csrc/quantize_act.cu``, counted
+    in ``.launches``) on the current stream, no host sync. A
     non-contiguous input is made contiguous first. On a CPU tensor it runs
     the plain version."""
     if x.device.type == "cpu":
         return quantize_lib.quantize_act(x, a_scale)
-    if x.device.type != "cuda":
-        raise ValueError(f"quantize_act_cuda: unsupported device {x.device}")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"quantize_act_cuda takes float32 or bfloat16, got "
-                        f"{x.dtype}")
-    if x.numel() == 0:
-        raise ValueError("quantize_act_cuda: empty tensor")
-    x = x.contiguous()
-    if x.data_ptr() % 16:                      # the kernel's 16-byte loads
-        x = x.clone()
+    _float_activation("quantize_act_cuda", x)
+    x = _dense(x)
+    scale = act_scale_cuda(x, a_scale)
     q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
-    is_bf16 = int(x.dtype == torch.bfloat16)
     lib = _library("quantize_act")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        if a_scale is None:
-            amax = torch.zeros((), dtype=torch.float32, device=x.device)
-            _check_launch(lib, "quantize_act", lib.quantize_act_absmax(
-                x.data_ptr(), is_bf16, x.numel(), amax.data_ptr(), stream))
-            quantize_act_cuda.absmax_launches += 1
-            scale = torch.empty((), dtype=torch.float32, device=x.device)
-            rc = lib.quantize_act_q(x.data_ptr(), is_bf16, x.numel(),
-                                    amax.data_ptr(), 1, scale.data_ptr(),
-                                    q.data_ptr(), stream)
-        else:
-            scale = torch.as_tensor(a_scale, dtype=torch.float32,
-                                    device=x.device)
-            if scale.dim() != 0:
-                raise ValueError(f"quantize_act_cuda: a_scale must be a "
-                                 f"scalar, got shape {tuple(scale.shape)}")
-            rc = lib.quantize_act_q(x.data_ptr(), is_bf16, x.numel(),
-                                    scale.data_ptr(), 0, None, q.data_ptr(),
-                                    stream)
+        rc = lib.quantize_act_q(x.data_ptr(), int(x.dtype == torch.bfloat16),
+                                x.numel(), scale.data_ptr(), q.data_ptr(),
+                                stream)
     _check_launch(lib, "quantize_act", rc)
     quantize_act_cuda.launches += 1
     return q, scale
 
 
 quantize_act_cuda.launches = 0
-quantize_act_cuda.absmax_launches = 0
+
+_IM2COL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
+def quantize_im2col_cuda(x: torch.Tensor, scale, k: int, tile,
+                         out: torch.Tensor) -> torch.Tensor:
+    """Kernel B2 fused with the im2col gather: fill ``out`` (m, K_pad)
+    int8 with the quantized im2col rows of the tile ``(b0, b1, h0, h1)``
+    of a SAME, stride-1 ``k×k`` conv over ``x`` (B, H, W, C), and return
+    it; the same function as ``ops/quantize.quantize_im2col``, bit for
+    bit. ``x`` is float32 or bf16 with the 0-d float32 ``scale`` of the
+    whole tensor, or int8 values with ``scale`` None. On a CUDA tensor it
+    launches ``csrc/quantize_act.cu``'s gather on the current stream
+    (counted in ``.launches``), reading ``x`` through its strides, which
+    must give the channels a unit stride: the int8 path's NHWC views are
+    read without a copy, and anything else raises. On a CPU tensor it runs
+    the plain version."""
+    if x.device.type == "cpu":
+        return quantize_lib.quantize_im2col(x, scale, k, tile, out)
+    if x.device.type != "cuda":
+        raise ValueError(f"quantize_im2col_cuda: unsupported device "
+                         f"{x.device}")
+    if x.dtype not in _IM2COL_DTYPES:
+        raise TypeError(f"quantize_im2col_cuda takes float32, bfloat16 or "
+                        f"int8, got {x.dtype}")
+    if x.dim() != 4 or x.numel() == 0 or x.stride(3) != 1:
+        raise ValueError(f"quantize_im2col_cuda takes a non-empty (B, H, W, "
+                         f"C) tensor with unit channel stride, got shape "
+                         f"{tuple(x.shape)}, strides {x.stride()}")
+    if (x.dtype == torch.int8) != (scale is None):
+        raise ValueError("quantize_im2col_cuda: a scale goes with float "
+                         "input, none with int8 input")
+    if scale is not None and (scale.device != x.device or scale.dim() != 0
+                              or scale.dtype != torch.float32):
+        raise ValueError("quantize_im2col_cuda: the scale must be a 0-d "
+                         "float32 tensor on x's device")
+    b, h, w, c = x.shape
+    b0, b1, h0, h1 = tile
+    m = (b1 - b0) * (h1 - h0) * w
+    if not (0 <= b0 < b1 <= b and 0 <= h0 < h1 <= h and k % 2 == 1):
+        raise ValueError(f"quantize_im2col_cuda: tile {tile} of a {k}x{k} "
+                         f"conv does not fit {tuple(x.shape)}")
+    if (out.device != x.device or out.dtype != torch.int8 or out.dim() != 2
+            or out.shape[0] != m or not 0 <= out.shape[1] - k * k * c < 8
+            or out.shape[1] % 8 or not out.is_contiguous()
+            or out.data_ptr() % 16):
+        raise ValueError(f"quantize_im2col_cuda: out must be a contiguous, "
+                         f"16-byte aligned ({m}, K_pad) int8 tensor with "
+                         f"K_pad the multiple of 8 at or above {k * k * c}; "
+                         f"got {out.dtype} {tuple(out.shape)}")
+    lib = _library("quantize_act")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.quantize_act_im2col(
+            x.data_ptr(), _IM2COL_DTYPES[x.dtype], h, w, c, *x.stride()[:3],
+            k, b0, b1, h0, h1, out.shape[1],
+            None if scale is None else scale.data_ptr(), out.data_ptr(),
+            stream)
+    _check_launch(lib, "quantize_act", rc)
+    quantize_im2col_cuda.launches += 1
+    return out
+
+
+quantize_im2col_cuda.launches = 0

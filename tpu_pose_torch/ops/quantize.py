@@ -1,15 +1,20 @@
 """int8 serving-path arithmetic (port of ``tpu_pose/models/cpm.py``'s
 ``_quantize_act`` and the int8 half of ``_conv_q``).
 
-- :func:`quantize_act` — the plain PyTorch version of kernel B2
-  (``tpu_pose/ops/pallas_kernels.py:quantize_act_pallas``; the CUDA kernel
-  is ``csrc/quantize_act.cu``): symmetric per-tensor int8 activation
-  quantization.
-- :func:`int8_conv` — a SAME, stride-1 conv of an int8 NHWC tensor with
-  int8 weights, accumulated in int32: the JAX package leaves it to XLA's
-  ``conv_general_dilated(preferred_element_type=int32)``; here it is
-  im2col plus ``torch._int_mm``, tiled over output rows, with the float
-  epilogue applied tile by tile.
+Kernel B2 (``tpu_pose/ops/pallas_kernels.py:quantize_act_pallas``) has two
+CUDA forms in ``csrc/quantize_act.cu``; their plain PyTorch versions are:
+
+- :func:`act_scale` and :func:`quantize_act` — symmetric per-tensor int8
+  activation quantization (the scale, then the int8 values);
+- :func:`quantize_im2col` — the same quantization fused with the gather
+  of one tile's im2col rows, which is how every conv with k > 1 gets its
+  A operand.
+
+:func:`int8_conv` is a SAME, stride-1 conv with int8 weights, accumulated
+in int32: the JAX package leaves it to XLA's
+``conv_general_dilated(preferred_element_type=int32)``; here it is im2col
+plus ``torch._int_mm``, tiled over output rows, with the float epilogue
+applied tile by tile.
 """
 
 from __future__ import annotations
@@ -25,26 +30,63 @@ import torch.nn.functional as F
 TILE_BYTES = 512 * 2 ** 20
 
 
-def quantize_act(x: torch.Tensor, a_scale=None
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(int8 values, scale)``: ``q = clip(round(x / scale), -127, 127)``
-    elementwise, in ``x``'s shape. ``scale`` is ``a_scale`` (a calibrated
-    static scale) when given, else ``max(max|x| / 127, 1e-12)`` (dynamic).
-
-    float32 and bf16 inputs are computed in float32. The division is a
-    true division and the round is half to even, as ``jnp.round``; the
-    scale stays a 0-d tensor on ``x``'s device (no host sync). The
+def act_scale(x: torch.Tensor, a_scale=None) -> torch.Tensor:
+    """The 0-d float32 scale of ``x`` on ``x``'s device (no host sync):
+    ``a_scale`` (a calibrated static scale) when given, else
+    ``max(max|x| / 127, 1e-12)`` over the whole tensor (dynamic). The
     divisor 127 is a tensor on purpose: PyTorch's CUDA ``tensor / python
     scalar`` multiplies by the reciprocal instead."""
-    x = x.float()
-    if a_scale is None:
-        amax = x.abs().amax()
-        scale = torch.clamp_min(amax / torch.full_like(amax, 127.0), 1e-12)
-    else:
-        scale = torch.as_tensor(a_scale, dtype=torch.float32,
-                                device=x.device)
-    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
-    return q, scale
+    if a_scale is not None:
+        return torch.as_tensor(a_scale, dtype=torch.float32, device=x.device)
+    amax = x.float().abs().amax()
+    return torch.clamp_min(amax / torch.full_like(amax, 127.0), 1e-12)
+
+
+def _quantize(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``clip(round(x / scale), -127, 127)`` as int8, in float32: a true
+    division and a half-to-even round, as ``jnp.round``."""
+    return torch.clamp(torch.round(x.float() / scale), -127, 127).to(
+        torch.int8)
+
+
+def quantize_act(x: torch.Tensor, a_scale=None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(int8 values in x's shape, scale)``: ``q = clip(round(x /
+    scale), -127, 127)`` elementwise with ``scale = act_scale(x,
+    a_scale)``. float32 and bf16 inputs are computed in float32."""
+    scale = act_scale(x, a_scale)
+    return _quantize(x, scale), scale
+
+
+def quantize_im2col(x: torch.Tensor, scale, k: int,
+                    tile: Tuple[int, int, int, int],
+                    out: torch.Tensor) -> torch.Tensor:
+    """Fill ``out`` (m, K_pad) int8 with the im2col rows of one tile
+    ``(b0, b1, h0, h1)`` of a SAME, stride-1 ``k×k`` conv's output rows
+    over ``x`` (B, H, W, C), and return it: row ``((b - b0)·(h1 - h0) +
+    h - h0)·W + w`` holds the window at output pixel (b, h, w), K ordered
+    (kh, kw, c), positions outside the image 0 and columns K_real..K_pad
+    0. ``x`` is float32 or bf16 and quantized with the 0-d ``scale`` as in
+    :func:`quantize_act` (quantize(0) = 0, so the padding is the quantized
+    padding), or int8 values taken as they are (``scale`` None).
+
+    The plain version of the kernel behind
+    ``ops/cuda_kernels.quantize_im2col_cuda``: quantize the rows the tile
+    reads, pad them, and copy their ``unfold`` windows."""
+    b0, b1, h0, h1 = tile
+    h, w, c = x.shape[1:]
+    p = k // 2
+    lo, hi = max(h0 - p, 0), min(h1 + p, h)
+    q = x[b0:b1, lo:hi]
+    if x.dtype != torch.int8:
+        q = _quantize(q, scale)
+    q = F.pad(q, (0, 0, p, p, p - (h0 - lo), p - (hi - h1)))
+    k_real = k * k * c
+    win = q.unfold(1, k, 1).unfold(2, k, 1)     # (b, h, w, c, kh, kw)
+    out[:, :k_real].view(b1 - b0, h1 - h0, w, k, k, c).copy_(
+        win.permute(0, 1, 2, 4, 5, 3))
+    out[:, k_real:].zero_()
+    return out
 
 
 def int8_gemm(a: torch.Tensor, w_t: torch.Tensor) -> torch.Tensor:
@@ -82,38 +124,45 @@ def _tiles(b: int, h: int, row_bytes: int
             yield b0, b0 + 1, h0, min(h, h0 + rows)
 
 
-def int8_conv(q: torch.Tensor, w_t: torch.Tensor, k: int, n_out: int,
-              epilogue, out_dtype: torch.dtype) -> torch.Tensor:
-    """SAME stride-1 ``k×k`` conv of ``q`` (B, H, W, C) int8 contiguous
-    with the im2col weights ``w_t`` (K_pad, N_pad) int8, K ordered
-    (kh, kw, C). Each tile's int32 product goes through
-    ``epilogue(acc[:, :n_out])``; its float result is cast into the
-    (B, H, W, n_out) ``out_dtype`` output, which is returned."""
-    b, h, w, c = q.shape
+def int8_conv(x: torch.Tensor, w_t: torch.Tensor, k: int, n_out: int,
+              epilogue, out_dtype: torch.dtype,
+              a_scale: torch.Tensor | None = None) -> torch.Tensor:
+    """SAME stride-1 ``k×k`` conv of ``x`` (B, H, W, C) with the im2col
+    weights ``w_t`` (K_pad, N_pad) int8, K ordered (kh, kw, C). ``x`` is
+    int8 values (``a_scale`` None), or float32/bf16 activations with the
+    0-d scale ``a_scale`` of the whole tensor, which every tile quantizes
+    as it gathers its rows (kernel B2's fused form,
+    ``cuda_kernels.quantize_im2col_cuda``: no int8 copy of ``x`` and no
+    padded copy is made). Any strides with a unit channel stride. Each
+    tile's int32 product goes through ``epilogue(acc[:, :n_out])``; its
+    float result is cast into the (B, H, W, n_out) ``out_dtype`` output,
+    which is returned. A 1×1 conv of int8 values with K_pad = C needs no
+    gather: the GEMM reads ``x`` as it is."""
+    from tpu_pose_torch.ops import cuda_kernels   # it imports this module
+    b, h, w, c = x.shape
     k_real = k * k * c
     k_pad, n_pad = w_t.shape
     if not 0 <= k_pad - k_real < 8:
         raise ValueError(f"int8_conv: weights have K = {k_pad}, the input "
                          f"needs {k_real} (padded to a multiple of 8)")
-    out = torch.empty((b, h, w, n_out), dtype=out_dtype, device=q.device)
-    direct = k == 1 and k_pad == c              # a 1×1 conv needs no im2col
-    if not direct:
-        p = k // 2
-        q = F.pad(q, (0, 0, p, p, p, p))       # quantize(0) = 0
+    if (x.dtype == torch.int8) != (a_scale is None):
+        raise ValueError(f"int8_conv takes int8 values without a scale or "
+                         f"float activations with one; got {x.dtype} and "
+                         f"a_scale={a_scale}")
+    out = torch.empty((b, h, w, n_out), dtype=out_dtype, device=x.device)
+    direct = k == 1 and k_pad == c and a_scale is None
     buf = None
-    for b0, b1, h0, h1 in _tiles(b, h, w * (k_pad + 8 * n_pad)):
+    for tile in _tiles(b, h, w * (k_pad + 8 * n_pad)):
+        b0, b1, h0, h1 = tile
         m = (b1 - b0) * (h1 - h0) * w
         if direct:
-            a = q[b0:b1, h0:h1].reshape(m, c)
+            a = x[b0:b1, h0:h1].reshape(m, c)
         else:
             if buf is None:                     # the first tile is the largest
                 buf = torch.empty((m, k_pad), dtype=torch.int8,
-                                  device=q.device)
-                buf[:, k_real:].zero_()
-            a = buf[:m]
-            win = q[b0:b1, h0:h1 + k - 1].unfold(1, k, 1).unfold(2, k, 1)
-            a[:, :k_real].view(b1 - b0, h1 - h0, w, k, k, c).copy_(
-                win.permute(0, 1, 2, 4, 5, 3))
+                                  device=x.device)
+            a = cuda_kernels.quantize_im2col_cuda(x, a_scale, k, tile,
+                                                  buf[:m])
         y = epilogue(int8_gemm(a, w_t)[:, :n_out])
         out[b0:b1, h0:h1].view(m, n_out).copy_(y)
     return out

@@ -35,7 +35,19 @@ port's dependencies (torch, numpy). It
    the plain decode end to end, the GPU path against the CPU path on a
    small float32 model (float and int8), and fit recovery of known
    bodies;
-8. prints a ``{"kernels": [...]}`` line and, last,
+8. drives the accuracy front end (letterbox, refine_scale, flip and
+   scale TTA) through ``estimate_and_fit`` on (8, 480, 640, 3) frames
+   (``front_end_main_path``, 12 B1 launches per call, and its
+   ``front_end_breakdown``); the single-person video path at T = 64 with
+   4 yaw hypotheses (``video_main_path``, smooth; ``video_modes``,
+   temporal and independent), the int8 video path (``video_int8``:
+   ``quantize=True``, ``cpm_microbatch=16``, refine_scale, its B1 and B2
+   launches against the computed counts, no non-NHWC conv input), and
+   the stream form against ``VideoSession`` over 80 frames
+   (``video_stream``); then holds the GPU front end and video paths
+   against the CPU ones on a small float32 model
+   (``front_end_small_reference``, ``video_small_reference``);
+9. prints a ``{"kernels": [...]}`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Every phase prints one JSON object per line. Any failed check raises, so
@@ -60,8 +72,10 @@ import torch
 import torch.nn.functional as F
 from torch.autograd import DeviceType
 
-from tpu_pose_torch.api import PoseEstimator
+from tpu_pose_torch import api as api_lib
+from tpu_pose_torch.api import PoseEstimator, VideoSession
 from tpu_pose_torch.fitting import fit as fit_lib
+from tpu_pose_torch.fitting import temporal
 from tpu_pose_torch.models import cpm as cpm_lib
 from tpu_pose_torch.models import joints as joints_lib
 from tpu_pose_torch.models import smpl as smpl_lib
@@ -118,6 +132,21 @@ def close(a: torch.Tensor, b: torch.Tensor, rtol: float, atol: float):
     a, b = a.double().cpu(), b.double().cpu()
     ok = bool(((a - b).abs() <= atol + rtol * b.abs()).all())
     return ok, float((a - b).abs().max())
+
+
+class NoTF32:
+    """TF32 off for float32 convs and matmuls for the duration, as on the
+    CPU, for the GPU-against-CPU comparisons."""
+
+    def __enter__(self):
+        self.prev = (torch.backends.cuda.matmul.allow_tf32,
+                     torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = self.prev
 
 
 def cuda_ms(fn, cold_l2: bool, reps: int = 60) -> float:
@@ -220,22 +249,26 @@ def conv_input_hw(cfg: CPMConfig) -> dict:
     return hw
 
 
-def int8_launches(qcpm, cfg: CPMConfig, batch: int, dynamic: bool) -> dict:
-    """B2's launches in one int8 CPM forward of ``batch`` frames: one
+def int8_launches(qcpm, cfg: CPMConfig, batch: int, dynamic: bool,
+                  stage1_runs: int = 1) -> dict:
+    """B2's launches in one int8 CPM pass over ``batch`` frames: one
     quantize pass per 1×1 conv, one fused gather per tile of every k×k
     conv (``ops/quantize._tiles``, as ``int8_conv`` cuts it), and with
-    dynamic scales one abs-max pass per conv."""
+    dynamic scales one abs-max pass per conv. ``stage1_runs``: how often
+    the pass runs stage 1 (``refine_scale`` runs it once more per crop
+    round before the refinement stages)."""
     hw = conv_input_hw(cfg)
     count = {"quantize_act": 0, "quantize_im2col": 0,
              "quantize_act_absmax": 0}
     for name, layer in qcpm.named_children():
-        count["quantize_act_absmax"] += int(dynamic)
+        runs = stage1_runs if name.endswith("_stage1") else 1
+        count["quantize_act_absmax"] += int(dynamic) * runs
         if layer.kernel_size == 1:
-            count["quantize_act"] += 1
+            count["quantize_act"] += runs
             continue
         n_pad, k_pad = layer.w_int8.shape
         h = hw[name]
-        count["quantize_im2col"] += len(list(quantize_lib._tiles(
+        count["quantize_im2col"] += runs * len(list(quantize_lib._tiles(
             batch, h, h * (k_pad + 8 * n_pad))))
     return count
 
@@ -396,9 +429,9 @@ def phase_soft_argmax_timing(replay: dict) -> dict:
     return rows
 
 
-def _images(batch: int, size: int, seed: int) -> np.ndarray:
+def _frames(t: int, h: int, w: int, seed: int) -> np.ndarray:
     return np.random.RandomState(seed).randint(
-        0, 256, (batch, size, size, 3)).astype(np.uint8)
+        0, 256, (t, h, w, 3)).astype(np.uint8)
 
 
 B2_NONE = {"quantize_act": 0, "quantize_im2col": 0, "quantize_act_absmax": 0}
@@ -872,15 +905,11 @@ def phase_int8_small_reference() -> None:
     cfg = CPMConfig(input_size=64, features=16, stage1_head_width=32,
                     refine_width=16, num_stages=3, compute_dtype="float32")
     cpu_float = cpm_lib.init_cpm_params(0, cfg, device="cpu")
-    x = pre.preprocess(torch.from_numpy(_images(4, 80, seed=8)), 64)
+    x = pre.preprocess(torch.from_numpy(_frames(4, 80, 80, seed=8)), 64)
     cm = pre.gaussian_center_map(64, cfg.center_sigma)
     cm = cm.expand(x.shape[0], *cm.shape).contiguous()
     scales = cpm_lib.calibrate_act_scales(cpu_float, x, cm, cfg)
-    prev = (torch.backends.cuda.matmul.allow_tf32,
-            torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
+    with NoTF32():
         for mode, act in (("static", scales), ("dynamic", None)):
             q_cpu = cpm_lib.quantize_params(cpu_float, act)
             q_gpu = copy.deepcopy(q_cpu).to(DEVICE)
@@ -910,9 +939,6 @@ def phase_int8_small_reference() -> None:
                       (taps["gpu"][first] - taps["cpu"][first]).abs().max())),
                   "ok": ok})
             check(ok, f"GPU vs CPU int8 path ({mode} scales): {j_err} px")
-    finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = prev
 
 
 def phase_plain_decode(est: PoseEstimator, images: np.ndarray,
@@ -943,20 +969,13 @@ def phase_small_reference() -> None:
                             w_shape_prior=0, w_angle_prior=0),
                 StageConfig(iters=40, lr=0.02, w_pose_prior=0.5,
                             w_shape_prior=1.0)), img_size=64)
-    images = _images(2, 64, seed=7)
-    prev = (torch.backends.cuda.matmul.allow_tf32,
-            torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
+    images = _frames(2, 64, 64, seed=7)
+    with NoTF32():
         gpu = PoseEstimator.create_synthetic(0, cpm_cfg, fit_cfg,
                                              device=DEVICE)
         cpu = PoseEstimator.create_synthetic(0, cpm_cfg, fit_cfg,
                                              device="cpu")
         g, c = gpu.estimate_and_fit(images), cpu.estimate_and_fit(images)
-    finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = prev
     ok_j, err_j = close(g.joints2d, c.joints2d, 0.0, 1e-2)
     mpjpe_mm = 1000.0 * float(
         (g.joints3d.cpu() - c.joints3d).norm(dim=-1).mean())
@@ -1018,6 +1037,385 @@ def phase_fit_recovery(est: PoseEstimator) -> None:
     check(ok, f"fit recovery: reprojection {e0} px -> {e1} px")
 
 
+# -- the accuracy front end and video (ROADMAP A.10, A.11) --------------------
+
+FRONT_END = dict(letterbox=True, refine_scale=True, flip_tta=True,
+                 scale_tta=(0.8, 1.25))
+FRONT_END_HW = (480, 640)          # non-square frames: the letterbox pads
+# B1 per front-end pass with refine_scale: the β = 30 geometry decode and
+# the final decode. Passes: base, 2 scales, each also mirrored.
+FRONT_END_B1 = 2 * (1 + len(FRONT_END["scale_tta"])) * 2
+# Crops per front-end call: one refine_scale crop per pass, plus one
+# centered zoom per TTA scale.
+FRONT_END_CROPS = (1 + len(FRONT_END["scale_tta"])) * 2 \
+    + len(FRONT_END["scale_tta"])
+VIDEO_T = 64                      # BASELINE.json configuration 4
+VIDEO_RESTARTS = 4
+STREAM_T, STREAM_CHUNK, STREAM_PUSH = 80, 32, 7
+
+
+def _smooth_frames(t: int, h: int, w: int, seed: int) -> np.ndarray:
+    """uint8 frames of a 6×5 random field interpolated up (bilinear,
+    numpy): the small-reference inputs, on which the random-weight
+    network's crop geometry is well conditioned (tests/
+    test_torch_front_end.py)."""
+    lo = np.random.RandomState(seed).rand(t, 6, 5, 3) * 255.0
+    ys, xs = np.linspace(0, 5, h), np.linspace(0, 4, w)
+    y0, x0 = np.minimum(ys.astype(int), 4), np.minimum(xs.astype(int), 3)
+    fy = (ys - y0)[None, :, None, None]
+    fx = (xs - x0)[None, None, :, None]
+    top = lo[:, y0][:, :, x0] * (1 - fx) + lo[:, y0][:, :, x0 + 1] * fx
+    bot = lo[:, y0 + 1][:, :, x0] * (1 - fx) + lo[:, y0 + 1][:, :, x0 + 1] * fx
+    return np.clip(np.round(top * (1 - fy) + bot * fy), 0, 255).astype(
+        np.uint8)
+
+
+def _timed_calls(fn, calls: int):
+    """``calls`` synchronized calls of ``fn`` (the first a warm-up): the
+    last result and the host seconds of the timed ones."""
+    res = fn()
+    torch.cuda.synchronize()
+    seconds = []
+    for _ in range(calls - 1):
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    return res, seconds
+
+
+def phase_front_end_main_path(est: PoseEstimator,
+                              frames: np.ndarray) -> dict:
+    """estimate_and_fit with letterbox, refine_scale, flip and scale TTA
+    on non-square uint8 frames: one warm-up and three timed calls with
+    the launch counts zeroed just before and read just after; 12 B1
+    launches per call, no B2. The joints come back in source pixels:
+    each image's median joint lies inside the frame."""
+    calls = 4
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    res, seconds = _timed_calls(lambda: est.estimate_and_fit(frames), calls)
+    launches = read_counts()
+    b, h, w = frames.shape[:3]
+    check_result(res, b)
+    want = {"soft_argmax": FRONT_END_B1 * calls, **B2_NONE}
+    check(launches == want, f"front end launched {launches}, expected "
+          f"{want}")
+    med = res.joints2d.median(dim=1).values.cpu()
+    inside = bool(((med >= 0) & (med < torch.tensor([w, h]))).all())
+    j = res.joints2d.cpu()
+    share = float(((j[..., 0] >= 0) & (j[..., 0] < w) & (j[..., 1] >= 0)
+                   & (j[..., 1] < h)).float().mean())
+    emit({"phase": "front_end_main_path", "batch": b, "frame_hw": [h, w],
+          "knobs": {k: list(v) if isinstance(v, tuple) else v
+                    for k, v in FRONT_END.items()},
+          "calls": calls, "launches": launches,
+          "b1_per_call": launches["soft_argmax"] // calls,
+          "seconds_per_call": seconds,
+          "frames_per_s": [b / t for t in seconds],
+          "median_joint_inside_frame": inside,
+          "joints_inside_frame_share": share,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    check(inside, "front end: each image's median joint inside the "
+          "source frame")
+    return launches
+
+
+def phase_front_end_breakdown(est: PoseEstimator,
+                              frames: np.ndarray) -> None:
+    """The front-end call's parts one at a time (host clock around
+    synchronized calls): the 2D front end with every knob, the same with
+    only the letterbox (one plain pass), the fit, and the device time of
+    one crop (``_crop_zoom`` of the batch, eager, events around it) times
+    the crops a call makes."""
+    out = {}
+    t_front = host_s(lambda: out.update(fe=est._front_end(frames)))
+    t_plain = host_s(lambda: est._front_end(
+        frames, refine_scale=False, flip_tta=False, scale_tta=()))
+    _, j, c = out["fe"]
+    t_fit = host_s(lambda: fit_lib.fit_smpl_batch(
+        est.smpl_model, j, c, est.fit_cfg, est.prior))
+    x = pre.preprocess(torch.from_numpy(frames).to(DEVICE),
+                       est.cpm_cfg.input_size, letterbox=True)
+    b = x.shape[0]
+    s = torch.linspace(0.7, 2.5, b, device=DEVICE)
+    t = torch.full((b, 2), 40.0, device=DEVICE)
+    crop_ms = eager_ms(lambda: cpm_lib._crop_zoom(x, s, t), reps=20)
+    emit({"phase": "front_end_breakdown", "batch": b,
+          "front_end_cpm_s": t_front, "plain_pass_cpm_s": t_plain,
+          "front_end_over_plain": t_front / t_plain, "fit_s": t_fit,
+          "crop_ms_each": crop_ms, "crops_per_call": FRONT_END_CROPS,
+          "crop_s_per_call": crop_ms * FRONT_END_CROPS / 1e3,
+          "fit_steps": sum(st.iters for st in est.fit_cfg.stages)})
+
+
+def phase_video_main_path(est: PoseEstimator, frames: np.ndarray) -> dict:
+    """estimate_and_fit_video(mode="smooth") over T = 64 frames with 4
+    yaw hypotheses per frame (BASELINE.json configuration 4): one
+    warm-up and two timed calls, launch counts zeroed before and read
+    after (one B1 launch per call: the CPM runs the 64 frames at once);
+    then the CPM and the fit one at a time."""
+    calls = 3
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    res, seconds = _timed_calls(
+        lambda: est.estimate_and_fit_video(frames, "smooth"), calls)
+    launches = read_counts()
+    t = frames.shape[0]
+    check_result(res, t)
+    want = {"soft_argmax": calls, **B2_NONE}
+    check(launches == want, f"video launched {launches}, expected {want}")
+    check(bool((res.beta == res.beta[:1]).all()), "video: one shared β")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    out = {}
+    t_cpm = host_s(lambda: out.update(fe=est._front_end(frames)))
+    _, j, c = out["fe"]
+    t_fit = host_s(lambda: temporal.fit_video_smooth(
+        est.smpl_model, j, c, est.fit_cfg, est.prior,
+        restarts=est.fit_restarts))
+    emit({"phase": "video_main_path", "frames": t, "mode": "smooth",
+          "restarts": est.fit_restarts, "calls": calls,
+          "launches": launches, "seconds_per_call": seconds,
+          "frames_per_s": [t / x for x in seconds],
+          "cpm_s": t_cpm, "fit_s": t_fit,
+          "cpm_share": t_cpm / (t_cpm + t_fit),
+          "fit_share": t_fit / (t_cpm + t_fit),
+          "adam_steps": (sum(st.iters for st in est.fit_cfg.stages) + 100),
+          "peak_mem_gb": peak})
+    return launches
+
+
+def _not_nhwc_conv_inputs(est: PoseEstimator, frames: np.ndarray) -> list:
+    """The int8 conv inputs of one front-end pass over ``frames`` that are
+    not NHWC memory (which B2's gather refuses and its other passes
+    would copy): ``_conv_q`` is wrapped for the one call."""
+    names = {id(m): n for n, m in est.cpm.named_children()}
+    bad = []
+    conv_q = cpm_lib._conv_q
+
+    def tap(x, layer, relu, act_dtype):
+        if not x.permute(0, 2, 3, 1).is_contiguous():
+            bad.append(names[id(layer)])
+        return conv_q(x, layer, relu, act_dtype)
+
+    cpm_lib._conv_q = tap
+    try:
+        est._front_end(frames)
+    finally:
+        cpm_lib._conv_q = conv_q
+    return sorted(set(bad))
+
+
+def phase_video_int8(est: PoseEstimator, frames: np.ndarray) -> dict:
+    """The int8 video path: quantize=True, 8 calibration frames,
+    cpm_microbatch=16, refine_scale, smooth mode, T = 64. One warm-up and
+    one timed call with the counts zeroed before and read after, held
+    against the computed launches: per chunk of 16, B1 twice (geometry
+    and final decode), B2's quantize passes and gathers with stage 1
+    counted twice (the refine_scale crop round)."""
+    calls = 2
+    t = frames.shape[0]
+    chunks = -(-t // est.cpm_microbatch)
+    per_chunk = int8_launches(est.cpm, est.cpm_cfg, est.cpm_microbatch,
+                              False, stage1_runs=2)
+    want = {"soft_argmax": 2 * chunks * calls,
+            **{k: n * chunks * calls for k, n in per_chunk.items()}}
+    zero_counts()
+    res, seconds = _timed_calls(
+        lambda: est.estimate_and_fit_video(frames, "smooth"), calls)
+    launches = read_counts()
+    check_result(res, t)
+    check(launches == want, f"int8 video launched {launches}, expected "
+          f"{want}")
+    not_nhwc = _not_nhwc_conv_inputs(est, frames[:est.cpm_microbatch])
+    emit({"phase": "video_int8", "frames": t, "chunks": chunks,
+          "calls": calls, "launches": launches, "expected": want,
+          "seconds_per_call": seconds,
+          "frames_per_s": [t / x for x in seconds],
+          "conv_inputs_not_nhwc": not_nhwc})
+    check(not_nhwc == [], f"int8 conv inputs not NHWC memory: {not_nhwc}")
+    return launches
+
+
+def phase_video_modes(est: PoseEstimator, frames: np.ndarray) -> None:
+    """The temporal (warm-start) and independent modes, one call each."""
+    for mode in ("temporal", "independent"):
+        zero_counts()
+        t0 = time.perf_counter()
+        res = est.estimate_and_fit_video(frames, mode)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        check_result(res, frames.shape[0])
+        launches = read_counts()
+        check(launches["soft_argmax"] == 1, f"{mode}: {launches}")
+        emit({"phase": "video_modes", "mode": mode,
+              "frames": frames.shape[0], "seconds": seconds,
+              "frames_per_s": frames.shape[0] / seconds,
+              "launches": launches})
+
+
+def _fit_gap(a, b, model) -> dict:
+    """θ (without the leaf joints' rotations, which only the prior moves
+    and float noise steers; tests/test_torch_temporal.py), β and cam max
+    differences, and joints3d MPJPE and mean vertex error in mm, of two
+    results on the same frames."""
+    gap = {k: float((getattr(a, k).cpu()[..., ix]
+                     - getattr(b, k).cpu()[..., ix]).abs().max())
+           for k, ix in (("theta", DRIVEN_THETA), ("beta", slice(None)),
+                         ("cam", slice(None)))}
+    with torch.no_grad():
+        fa, fb = (smpl_lib.smpl_forward(model.to("cpu"), r.beta.cpu(),
+                                        r.theta.cpu(),
+                                        precision=smpl_lib.EXACT_PRECISION)
+                  for r in (a, b))
+    gap["joints3d_mpjpe_mm"] = 1000.0 * float(
+        (fa.joints - fb.joints).norm(dim=-1).mean())
+    gap["vertices_mean_mm"] = 1000.0 * float(
+        (fa.vertices - fb.vertices).norm(dim=-1).mean())
+    return gap
+
+
+LEAF_THETA = [3 * j + a for j in (10, 11, 22, 23) for a in range(3)]
+DRIVEN_THETA = [i for i in range(72) if i not in LEAF_THETA]
+
+
+def phase_video_stream(est: PoseEstimator, frames: np.ndarray) -> None:
+    """estimate_and_fit_video_stream(chunk=32) over 80 frames (two full
+    windows and one padded), and a VideoSession(chunk=32) fed the same
+    frames in pushes of 7, then flush(): the same windows and anchors, so
+    the two agree (joints2d within 1e-3 px, joints3d and vertices within
+    1 mm; the fits' float sums on the card are not bitwise repeatable)."""
+    zero_counts()
+    t0 = time.perf_counter()
+    ref = est.estimate_and_fit_video_stream(frames, chunk=STREAM_CHUNK)
+    torch.cuda.synchronize()
+    t_stream = time.perf_counter() - t0
+    stream_launches = read_counts()
+    check_result(ref, frames.shape[0])
+    session = VideoSession(est, chunk=STREAM_CHUNK)
+    outs, t0 = [], time.perf_counter()
+    for i in range(0, frames.shape[0], STREAM_PUSH):
+        r = session.push(frames[i:i + STREAM_PUSH])
+        if r is not None:
+            outs.append(r)
+    buffered = session.frames_buffered
+    outs.append(session.flush())
+    torch.cuda.synchronize()
+    t_session = time.perf_counter() - t0
+    got = api_lib._concat(outs)
+    check_result(got, frames.shape[0])
+    j_err = float((got.joints2d - ref.joints2d).abs().max())
+    gap = _fit_gap(got, ref, est.smpl_model)
+    ok = (j_err <= 1e-3 and gap["joints3d_mpjpe_mm"] <= 1.0
+          and gap["vertices_mean_mm"] <= 1.0)
+    emit({"phase": "video_stream", "frames": frames.shape[0],
+          "chunk": STREAM_CHUNK, "push": STREAM_PUSH,
+          "stream_s": t_stream, "session_s": t_session,
+          "stream_launches": stream_launches,
+          "buffered_before_flush": buffered,
+          "max_abs_err_joints2d_px": j_err, **gap, "ok": ok})
+    check(buffered == frames.shape[0] % STREAM_CHUNK,
+          f"session buffered {buffered} frames before flush")
+    check(ok, "VideoSession vs estimate_and_fit_video_stream")
+
+
+def _small_cfgs():
+    cpm_cfg = CPMConfig(input_size=64, features=16, stage1_head_width=32,
+                        refine_width=16, num_stages=3,
+                        compute_dtype="float32")
+    fit_cfg = FitConfig(
+        stages=(StageConfig(iters=15, lr=0.05, opt_pose=False,
+                            opt_shape=False, w_pose_prior=0,
+                            w_shape_prior=0, w_angle_prior=0),
+                StageConfig(iters=25, lr=0.02, w_pose_prior=0.5,
+                            w_shape_prior=1.0)), img_size=64)
+    return cpm_cfg, fit_cfg
+
+
+# The cases of tests/test_torch_front_end.py's KNOBS. On the small
+# random-weight model the front end's sensitivity to float rounding
+# depends on the case: "everything" at the default zoom (max_zoom 3,
+# target 0.6) moves the joints by 0.03 px under 1e-6 relative weight
+# noise on the CPU, so the case uses the CPU test's max_zoom 2 and
+# target 0.7 (0.002 px).
+SMALL_KNOBS = {
+    "refine_center": dict(refine_center=True),
+    "refine_scale": dict(refine_scale=True),
+    "refine_scale_iters2": dict(refine_scale=True, scale_iters=2),
+    "scale_from_refined": dict(refine_scale=True, scale_from_refined=True),
+    "flip_tta": dict(flip_tta=True),
+    "scale_tta": dict(scale_tta=(0.8, 1.25)),
+    "flip_x_scale": dict(flip_tta=True, scale_tta=(0.8, 1.0, 1.25)),
+    "flip_x_scale_refine_scale": dict(flip_tta=True, scale_tta=(0.8, 1.25),
+                                      refine_scale=True),
+    "letterbox_source_frame": dict(letterbox=True),
+    "letterbox_network_frame": dict(letterbox=True, source_frame=False),
+    "everything": dict(letterbox=True, refine_scale=True, flip_tta=True,
+                       scale_tta=(0.8, 1.25), max_zoom=2.0,
+                       scale_target_frac=0.7),
+}
+
+
+def phase_front_end_small_reference() -> None:
+    """The GPU front end against the CPU one (which
+    tests/test_torch_front_end.py holds against JAX) on a small float32
+    CPM, TF32 off, one case per knob, 80×60 smooth frames: heatmaps and
+    conf within 1e-4·max|b|, joints within 1e-2 px (the CPU tests'
+    bounds). On the card every decode, the geometry's included, is a B1
+    launch."""
+    cfg, _ = _small_cfgs()
+    cpu = cpm_lib.init_cpm_params(0, cfg, device="cpu")
+    gpu = copy.deepcopy(cpu).to(DEVICE)
+    images = torch.from_numpy(_smooth_frames(2, 80, 60, seed=2))
+    with NoTF32(), torch.no_grad():
+        for name, kw in SMALL_KNOBS.items():
+            want = cpm_lib.estimate_2d_from_images(cpu, images, cfg, **kw)
+            before = cuda_kernels.soft_argmax_cuda.launches
+            got = cpm_lib.estimate_2d_from_images(gpu, images.to(DEVICE),
+                                                  cfg, **kw)
+            launched = cuda_kernels.soft_argmax_cuda.launches - before
+            scale = float(want[0].abs().max())
+            errs = [float((g.cpu() - w).abs().max())
+                    for g, w in zip(got, want)]
+            ok = (errs[0] <= 1e-4 * scale and errs[1] <= 1e-2
+                  and errs[2] <= 1e-4 * scale and launched > 0)
+            emit({"phase": "front_end_small_reference", "case": name,
+                  "max_abs_err_heatmaps": errs[0], "max_abs_heatmap": scale,
+                  "max_abs_err_joints2d_px": errs[1],
+                  "max_abs_err_conf": errs[2], "b1_launches": launched,
+                  "ok": ok})
+            check(ok, f"GPU vs CPU front end, {name}")
+
+
+def phase_video_small_reference() -> None:
+    """The GPU video paths against the CPU ones (which
+    tests/test_torch_temporal.py holds against JAX) on a small float32
+    model, TF32 off: each mode of estimate_and_fit_video and the stream
+    form, within the CPU tests' bounds (joints2d 1e-2 px; θ without the
+    leaf rotations, β and cam 1e-3; joints3d and vertices 1 mm)."""
+    cpm_cfg, fit_cfg = _small_cfgs()
+    frames = _smooth_frames(5, 64, 64, seed=3)
+    with NoTF32():
+        ests = {dev: PoseEstimator.create_synthetic(
+            0, cpm_cfg, fit_cfg, device=dev, fit_restarts=2)
+            for dev in ("cpu", DEVICE)}
+        calls = {m: (lambda e, m=m: e.estimate_and_fit_video(frames, m))
+                 for m in ("smooth", "temporal", "independent")}
+        calls["stream"] = lambda e: e.estimate_and_fit_video_stream(
+            frames, chunk=2)
+        for name, call in calls.items():
+            want, got = call(ests["cpu"]), call(ests[DEVICE])
+            j_err = float((got.joints2d.cpu() - want.joints2d).abs().max())
+            gap = _fit_gap(got, want, ests["cpu"].smpl_model)
+            ok = (j_err <= 1e-2 and max(gap["theta"], gap["beta"],
+                                        gap["cam"]) <= 1e-3
+                  and gap["joints3d_mpjpe_mm"] <= 1.0
+                  and gap["vertices_mean_mm"] <= 1.0)
+            emit({"phase": "video_small_reference", "case": name,
+                  "max_abs_err_joints2d_px": j_err, **gap, "ok": ok})
+            check(ok, f"GPU vs CPU video path, {name}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
@@ -1039,7 +1437,8 @@ def main() -> int:
                                          device=DEVICE)
     emit({"phase": "create", "seconds": time.perf_counter() - t0,
           "cpm_params": sum(p.numel() for p in est.cpm.parameters())})
-    images = _images(MAIN_BATCH, est.cpm_cfg.input_size, seed=0)
+    size = MAIN_CPM.input_size
+    images = _frames(MAIN_BATCH, size, size, seed=0)
     res, launches = phase_main_path(est, images)
     phase_breakdown(est, images)
     phase_profile(est, images)
@@ -1050,7 +1449,7 @@ def main() -> int:
     t0 = time.perf_counter()
     est8 = PoseEstimator.create_synthetic(
         seed=0, cpm_cfg=MAIN_CPM, quantize=True,
-        calibration_images=_images(8, MAIN_CPM.input_size, seed=1),
+        calibration_images=_frames(8, size, size, seed=1),
         cpm_microbatch=INT8_CHUNK, device=DEVICE)
     per_chunk = int8_launches(est8.cpm, MAIN_CPM, INT8_CHUNK, False)
     emit({"phase": "create_int8", "seconds": time.perf_counter() - t0,
@@ -1058,7 +1457,7 @@ def main() -> int:
           "b2_launches_per_chunk": per_chunk,
           "int8_min_batch": est8.int8_min_batch,
           "cpm_microbatch": est8.cpm_microbatch})
-    images8 = _images(INT8_BATCH, MAIN_CPM.input_size, seed=2)
+    images8 = _frames(INT8_BATCH, size, size, seed=2)
     runs = INT8_BATCH // INT8_CHUNK * 4            # chunks × calls
     _, launches8 = phase_main_path(
         est8, images8, "int8_main_path",
@@ -1067,6 +1466,34 @@ def main() -> int:
     phase_int8_small_batch(est8, images8[:MAIN_BATCH])
     phase_int8_breakdown(est8, images8[:INT8_CHUNK])
     phase_int8_small_reference()
+
+    t0 = time.perf_counter()
+    est_fe = PoseEstimator.create_synthetic(seed=0, cpm_cfg=MAIN_CPM,
+                                            device=DEVICE, **FRONT_END)
+    emit({"phase": "create_front_end", "seconds": time.perf_counter() - t0})
+    frames_fe = _frames(MAIN_BATCH, *FRONT_END_HW, seed=4)
+    fe_launches = phase_front_end_main_path(est_fe, frames_fe)
+    phase_front_end_breakdown(est_fe, frames_fe)
+    del est_fe
+
+    est_v = PoseEstimator.create_synthetic(seed=0, cpm_cfg=MAIN_CPM,
+                                           device=DEVICE,
+                                           fit_restarts=VIDEO_RESTARTS)
+    video = _frames(VIDEO_T, size, size, seed=5)
+    v_launches = phase_video_main_path(est_v, video)
+    phase_video_modes(est_v, video)
+    phase_video_stream(est_v, _frames(STREAM_T, size, size, seed=6))
+    del est_v
+
+    est8v = PoseEstimator.create_synthetic(
+        seed=0, cpm_cfg=MAIN_CPM, quantize=True,
+        calibration_images=_frames(8, size, size, seed=1),
+        cpm_microbatch=INT8_CHUNK, refine_scale=True,
+        fit_restarts=VIDEO_RESTARTS, device=DEVICE)
+    v8_launches = phase_video_int8(est8v, video)
+    del est8v
+    phase_front_end_small_reference()
+    phase_video_small_reference()
 
     q_row = q_timing[QUANT_KERNEL_ROW]
     g_row = g_timing[IM2COL_KERNEL_ROW]
@@ -1078,6 +1505,9 @@ def main() -> int:
         "replaces": "tpu_pose/ops/pallas_kernels.py:57",
         "launches": launches["soft_argmax"],
         "launches_int8_path": launches8["soft_argmax"],
+        "launches_front_end_path": fe_launches["soft_argmax"],
+        "launches_video_path": v_launches["soft_argmax"],
+        "launches_video_int8_path": v8_launches["soft_argmax"],
         "max_abs_err": err["max_abs_err"],
         "ms": sa_row["ms"], "plain_ms": sa_row["plain_ms"],
         "bound_ms": sa_row["bound_ms"], "bound_by": sa_row["bound_by"],
@@ -1089,6 +1519,7 @@ def main() -> int:
         "source": "tpu_pose_torch/csrc/quantize_act.cu",
         "replaces": "tpu_pose/ops/pallas_kernels.py:119",
         "launches": launches8["quantize_act"],
+        "launches_video_int8_path": v8_launches["quantize_act"],
         "max_abs_err": q_err["max_abs_err"],
         "ms": q_row["ms"], "plain_ms": q_row["plain_ms"],
         "bound_ms": q_row["bound_ms"], "bound_by": q_row["bound_by"],
@@ -1100,6 +1531,7 @@ def main() -> int:
         "source": "tpu_pose_torch/csrc/quantize_act.cu",
         "replaces": "tpu_pose/ops/pallas_kernels.py:119",
         "launches": launches8["quantize_im2col"],
+        "launches_video_int8_path": v8_launches["quantize_im2col"],
         "max_abs_err": g_err["max_abs_err"],
         "ms": g_row["ms"], "plain_ms": g_row["plain_ms"],
         "bound_ms": g_row["bound_ms"], "bound_by": g_row["bound_by"],

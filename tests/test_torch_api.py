@@ -207,20 +207,29 @@ def test_from_files_loads_what_jax_loads(estimators, tmp_path):
 
 
 def test_unported_knobs_raise(estimators):
+    """Only init_head (ROADMAP.md A.14) is still refused; the front-end
+    knobs construct (as keywords or via front_end=) and reach the
+    estimator, and mixing both ways is an error."""
     _, test = estimators["float32"]
     args = (test.cpm, test.smpl_model, test.prior, test.cpm_cfg,
             test.fit_cfg)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        PoseEstimator(*args, device="cpu", init_head={})
     for kw in (dict(refine_center=True), dict(letterbox=True),
                dict(flip_tta=True), dict(scale_tta=(0.8,)),
-               dict(init_head={}),
                dict(front_end=tc.FrontEndConfig(refine_scale=True))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            PoseEstimator(*args, device="cpu", **kw)
+        est = PoseEstimator(*args, device="cpu", **kw)
+        fe = kw.get("front_end") or tc.FrontEndConfig(**kw)
+        assert est.front_end == fe
+        assert (est.refine_center, est.refine_scale, est.letterbox,
+                est.flip_tta, est.scale_tta) == (
+            fe.refine_center, fe.refine_scale, fe.letterbox, fe.flip_tta,
+            fe.scale_tta)
     with pytest.raises(ValueError, match="not both"):
         PoseEstimator(*args, device="cpu", fit_restarts=2,
                       front_end=tc.FrontEndConfig())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        test.estimate_2d(_images(64, 64, 0), flip_tta=True)
+    r = test.estimate_2d(_images(64, 64, 0), flip_tta=True)
+    assert r.joints2d.shape == (2, 14, 2)
     est = PoseEstimator(*args, device="cpu",
                         front_end=tc.FrontEndConfig(fit_restarts=2))
     assert est.fit_restarts == 2

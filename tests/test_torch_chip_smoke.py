@@ -105,6 +105,24 @@ def test_int8_launches_per_chunk():
         (12, 15, 0, 368), (15, 16, 0, 368)]
 
 
+def test_int8_launches_with_refine_scale():
+    """With refine_scale a pass runs stage 1 twice (the crop round), so
+    the 7 stage-1 convs launch twice and the 33 others once."""
+    from tpu_pose_torch.models import cpm as cpm_lib
+    from tpu_pose_torch.utils.config import CPMConfig
+    q = cpm_lib.QuantizedCPM(CPMConfig())
+    once = chip_smoke.int8_launches(q, CPMConfig(), 16, True)
+    twice = chip_smoke.int8_launches(q, CPMConfig(), 16, True, stage1_runs=2)
+    stage1 = {k: twice[k] - once[k] for k in once}
+    assert stage1["quantize_act"] == 2              # conv6, conv7 (1×1)
+    assert stage1["quantize_act_absmax"] == 7
+    assert stage1["quantize_im2col"] == sum(
+        len(chip_smoke.im2col_tiles((16, hw, hw, c), k, n))
+        for hw, c, k, n in ((368, 3, 9, 128), (184, 128, 9, 128),
+                            (92, 128, 9, 128), (46, 128, 5, 32),
+                            (46, 32, 9, 512)))
+
+
 def test_im2col_bound_counts_rows_written_and_input_read():
     """The gather's byte bound: the tile's rows (m × K_pad) written once
     plus the input rows the tile covers (its rows and k//2 more on each

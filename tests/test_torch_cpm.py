@@ -117,16 +117,20 @@ def test_estimate_2d_bf16():
 
 
 def test_unported_knobs_raise():
+    """The front-end knobs that raised before they were ported now run
+    through both entry points, and micro-chunks of 2 over an uneven batch
+    give the whole batch's results (float32)."""
     _, tcfg = _cfgs()
     cpm = torch_cpm.CPM(tcfg)
-    imgs = torch.from_numpy(_images(b=1))
+    imgs = torch.from_numpy(_images(b=3))
     for kw in (dict(refine_center=True), dict(flip_tta=True),
                dict(letterbox=True), dict(scale_tta=(1.25,))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            torch_cpm.estimate_2d_from_images(cpm, imgs, tcfg, **kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            torch_cpm.estimate_2d_microbatched(
-                cpm, torch.from_numpy(_images(b=3)), tcfg, chunk=2, **kw)
+        with torch.no_grad():
+            whole = torch_cpm.estimate_2d_from_images(cpm, imgs, tcfg, **kw)
+            chunked = torch_cpm.estimate_2d_microbatched(cpm, imgs, tcfg,
+                                                         chunk=2, **kw)
+        for w, c in zip(whole, chunked):
+            torch.testing.assert_close(c, w, rtol=1e-5, atol=1e-5)
 
 
 def test_params_npz_round_trip(tmp_path):

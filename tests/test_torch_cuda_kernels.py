@@ -130,7 +130,11 @@ CASES = {"b1": (lambda: _planted(1), 100.0),
          "delta": (_delta, 100.0),
          "delta_nchw": (lambda: _delta("nchw"), 100.0),
          "nan_nhwc": (lambda: _nan_map("nhwc"), 100.0),
-         "nan_nchw": (lambda: _nan_map("nchw"), 100.0)}
+         "nan_nchw": (lambda: _nan_map("nchw"), 100.0),
+         # The front end's geometry decode: stage-1 beliefs at β = 30.
+         "stage1_beta30_b8": (lambda: _planted(8, 30).contiguous(), 30.0),
+         "stage1_beta30_b48": (lambda: _planted(48, 31).contiguous(), 30.0),
+         "stage1_beta30_nchw_b16": (lambda: _planted(16, 32), 30.0)}
 
 
 @pytest.mark.cuda
@@ -169,6 +173,22 @@ def test_decode_dispatch_on_cuda(cuda_device):
         cuda_kernels.soft_argmax_cuda(x.half())
     with pytest.raises(ValueError):
         cuda_kernels.soft_argmax_cuda(x[0])
+
+
+@pytest.mark.cuda
+def test_person_geometry_decodes_with_the_kernel(cuda_device):
+    """estimate_person_geometry on stage-1 beliefs launches B1 once (β =
+    30) and gives the CPU's centers and extents within 1e-3 px."""
+    b1 = _planted(8, 33).contiguous()
+    cfg = CPMConfig()
+    want = cpm_lib.estimate_person_geometry(b1, cfg)
+    before = cuda_kernels.soft_argmax_cuda.launches
+    got = cpm_lib.estimate_person_geometry(b1.to(cuda_device), cfg)
+    torch.cuda.synchronize()
+    assert cuda_kernels.soft_argmax_cuda.launches == before + 1
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=0,
+                                   atol=1e-3)
 
 
 def _quant_case(case):

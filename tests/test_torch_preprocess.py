@@ -40,14 +40,16 @@ def test_resize_image_matches_jax(hw, size):
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-3)
 
 
-def test_preprocess_batch_matches_jax():
+@pytest.mark.parametrize("letterbox", [False, True])
+def test_preprocess_batch_matches_jax(letterbox):
+    """A batch through the square resize or the letterbox (fill 128),
+    normalized: within 1e-3/256 of JAX's per-image preprocess."""
     imgs = np.stack([_image(80, 60, seed=s) for s in range(2)])
-    got = torch_pre.preprocess(torch.from_numpy(imgs), 64).numpy()
-    want = np.stack([np.asarray(jax_pre.preprocess(jnp.asarray(i), 64))
-                     for i in imgs])
+    got = torch_pre.preprocess(torch.from_numpy(imgs), 64,
+                               letterbox=letterbox).numpy()
+    want = np.stack([np.asarray(jax_pre.preprocess(
+        jnp.asarray(i), 64, letterbox=letterbox)) for i in imgs])
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-3 / 256)
-    with pytest.raises(NotImplementedError, match="letterbox"):
-        torch_pre.preprocess(torch.from_numpy(imgs), 64, letterbox=True)
 
 
 @pytest.mark.parametrize("size,center", [(368, None), (64, None),

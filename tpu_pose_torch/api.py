@@ -3,6 +3,10 @@
 - ``estimate_2d(images)``      — CPM heatmaps + decoded 2D joints.
 - ``fit_smpl(joints2d, conf)`` — SMPLify-style 3D fit from 2D joints.
 - ``estimate_and_fit(images)`` — raw images → 2D joints → fit → posed mesh.
+- ``estimate_and_fit_video(frames, mode)`` — one sequence, one fit
+  (smooth, temporal or independent); ``estimate_and_fit_video_stream``
+  — any length in anchored chunks; :class:`VideoSession` — the same,
+  fed frames as they arrive.
 
 ``PoseEstimator`` bundles the CPM, the SMPL model, the prior and the
 configs on one device. Inputs may be numpy arrays or tensors; outputs are
@@ -19,6 +23,7 @@ import torch
 
 from tpu_pose_torch.fitting import fit as fit_lib
 from tpu_pose_torch.fitting import priors as priors_lib
+from tpu_pose_torch.fitting import temporal
 from tpu_pose_torch.fitting.fit import FitResult
 from tpu_pose_torch.models import cpm as cpm_lib
 from tpu_pose_torch.models import smpl as smpl_lib
@@ -72,12 +77,6 @@ def _check_fit_inputs(joints2d, conf, num_joints: int) -> None:
             f"{js}, conf {cs}")
 
 
-# Knobs of FrontEndConfig the port does not have yet, with ROADMAP items.
-_NOT_PORTED = {"refine_center": "A.10", "refine_scale": "A.10",
-               "scale_from_refined": "A.10", "flip_tta": "A.10",
-               "scale_tta": "A.10", "letterbox": "A.10"}
-
-
 class PoseEstimator:
     """Bundles the CPM, SMPL model data, prior and configs on one device.
 
@@ -89,10 +88,9 @@ class PoseEstimator:
       - ``PoseEstimator.from_numpy(...)`` — the JAX package's arrays.
 
     ``device=None`` means CUDA, and raises without it. Front-end knobs are
-    those of :class:`FrontEndConfig`, as keywords or as ``front_end=``;
-    the port has the defaults, ``fit_restarts``, ``int8_min_batch`` and
-    ``cpm_microbatch``. Any other non-default knob and ``init_head`` raise
-    ``NotImplementedError`` (ROADMAP.md A.10, A.14).
+    those of :class:`FrontEndConfig`, as keywords or as ``front_end=``
+    (``scale_tta`` factors must lie in (0, 16)); ``init_head`` raises
+    ``NotImplementedError`` (ROADMAP.md A.14).
 
     int8 serving path: ``quantize=True`` quantizes the CPM
     (``models/cpm.quantize_params``) with static activation scales
@@ -131,17 +129,22 @@ class PoseEstimator:
             fe = FrontEndConfig(**knobs)
         fe = dataclasses.replace(
             fe, scale_tta=tuple(float(s) for s in fe.scale_tta))
-        defaults = FrontEndConfig()
-        off = [f"{k} (ROADMAP.md {item})" for k, item in _NOT_PORTED.items()
-               if getattr(fe, k) != getattr(defaults, k)]
         if init_head is not None:
-            off.append("init_head (ROADMAP.md A.14)")
-        if off:
-            raise NotImplementedError(f"not ported yet: {', '.join(off)}")
+            raise NotImplementedError(
+                "not ported yet: init_head (ROADMAP.md A.14)")
+        if not all(0.0 < s < 16.0 for s in fe.scale_tta):
+            raise ValueError(f"scale_tta factors must be in (0, 16), got "
+                             f"{fe.scale_tta}")
         self.front_end = fe
         self.fit_restarts = fe.fit_restarts
         self.int8_min_batch = fe.int8_min_batch
         self.cpm_microbatch = fe.cpm_microbatch
+        self.refine_center = fe.refine_center
+        self.refine_scale = fe.refine_scale
+        self.scale_from_refined = fe.scale_from_refined
+        self.flip_tta = fe.flip_tta
+        self.scale_tta = fe.scale_tta
+        self.letterbox = fe.letterbox
         self.device = resolve_device(device)
         cpm = cpm.to(self.device).eval()
         # The float twin, kept only when quantizing happens here (an
@@ -239,22 +242,42 @@ class PoseEstimator:
             return self.cpm_bf16
         return self.cpm
 
+    def _front_end(self, frames, chunk: Optional[int] = None,
+                   cpm=None, **knobs):
+        """The 2D front end with this estimator's knobs (``knobs``
+        override them) in ``chunk``-frame micro-chunks (default
+        ``cpm_microbatch``), by the precision policy unless ``cpm`` is
+        given: (heatmaps, joints, conf), joints in the network frame
+        unless ``source_frame=True`` is passed."""
+        kw = dict(refine_center=self.refine_center,
+                  refine_scale=self.refine_scale,
+                  scale_from_refined=self.scale_from_refined,
+                  flip_tta=self.flip_tta, scale_tta=self.scale_tta,
+                  letterbox=self.letterbox, source_frame=False)
+        kw.update(knobs)
+        if cpm is None:
+            cpm = self._params_for_batch(frames.shape[0])
+        with torch.no_grad():
+            return cpm_lib.estimate_2d_microbatched(
+                cpm, self._tensor(frames), self.cpm_cfg,
+                chunk=self.cpm_microbatch if chunk is None else chunk, **kw)
+
     def estimate_2d(self, images, refine_center: Optional[bool] = None,
                     refine_scale: Optional[bool] = None,
                     letterbox: Optional[bool] = None,
                     flip_tta: Optional[bool] = None,
                     scale_tta: Optional[tuple] = None) -> Estimate2DResult:
         """Images (B, H, W, 3) uint8/float → heatmaps, 2D joints, conf.
-        The per-call knobs exist for the JAX package's signature; a true
-        value raises ``NotImplementedError`` (ROADMAP.md A.10)."""
+        Each knob left at None takes the constructor's setting; with
+        ``letterbox`` the joints are in source-image pixels."""
         _check_frames(images)
-        with torch.no_grad():
-            hm, joints, conf = cpm_lib.estimate_2d_microbatched(
-                self._params_for_batch(images.shape[0]),
-                self._tensor(images), self.cpm_cfg,
-                chunk=self.cpm_microbatch, refine_center=bool(refine_center),
-                refine_scale=bool(refine_scale), letterbox=bool(letterbox),
-                flip_tta=bool(flip_tta), scale_tta=tuple(scale_tta or ()))
+        knobs = {k: v for k, v in (
+            ("refine_center", refine_center), ("refine_scale", refine_scale),
+            ("letterbox", letterbox), ("flip_tta", flip_tta),
+            ("scale_tta", None if scale_tta is None
+             else tuple(float(s) for s in scale_tta))) if v is not None}
+        hm, joints, conf = self._front_end(images, source_frame=True,
+                                           **knobs)
         return Estimate2DResult(hm, joints, conf)
 
     def fit_smpl(self, joints2d, conf, init: Optional[dict] = None,
@@ -284,16 +307,36 @@ class PoseEstimator:
                                          self.fit_cfg, self.prior, init)
         return FitResult(*(f[0] for f in res)) if single else res
 
-    def estimate_and_fit(self, images) -> EstimateAndFitResult:
-        """The main path: raw image batch → 2D joints (CPM + soft-argmax
-        decode) → batched SMPLify fit → posed mesh at the exact tier. CPM
-        precision follows the batch-size policy (``int8_min_batch``)."""
-        _check_frames(images)
+    def _to_source_frame(self, joints: torch.Tensor, images
+                         ) -> torch.Tensor:
+        """Network-frame joints (..., P, 2) → source-image pixels when
+        this estimator letterboxes; identity otherwise."""
+        if not self.letterbox:
+            return joints
+        return pre.joints_to_source_frame(joints, pre.letterbox_affine(
+            images.shape[1], images.shape[2], self.cpm_cfg.input_size))
+
+    def _finish(self, joints, conf, res: FitResult, images
+                ) -> EstimateAndFitResult:
+        """The final mesh at the exact tier (full float32, TF32 off) and
+        the joints mapped to source pixels."""
         with torch.no_grad():
-            _, joints, conf = cpm_lib.estimate_2d_microbatched(
-                self._params_for_batch(images.shape[0]),
-                self._tensor(images), self.cpm_cfg,
-                chunk=self.cpm_microbatch)
+            out = smpl_lib.smpl_forward(self.smpl_model, res.beta,
+                                        res.theta,
+                                        precision=smpl_lib.EXACT_PRECISION)
+        return EstimateAndFitResult(
+            joints2d=self._to_source_frame(joints, images), conf=conf,
+            theta=res.theta, beta=res.beta, cam=res.cam,
+            vertices=out.vertices, joints3d=out.joints, energy=res.energy)
+
+    def estimate_and_fit(self, images) -> EstimateAndFitResult:
+        """The main path: raw image batch → 2D joints (the front end with
+        this estimator's knobs, CPM + soft-argmax decode) → batched
+        SMPLify fit on the network-frame joints → posed mesh at the exact
+        tier. CPM precision follows the batch-size policy
+        (``int8_min_batch``)."""
+        _check_frames(images)
+        _, joints, conf = self._front_end(images)
         if self.fit_restarts > 1:
             res = fit_lib.fit_smpl_multistart(
                 self.smpl_model, joints, conf, self.fit_cfg, self.prior,
@@ -301,12 +344,140 @@ class PoseEstimator:
         else:
             res = fit_lib.fit_smpl_batch(self.smpl_model, joints, conf,
                                          self.fit_cfg, self.prior)
-        with torch.no_grad():
-            # Final mesh at the exact tier: full float32, TF32 off.
-            out = smpl_lib.smpl_forward(self.smpl_model, res.beta,
-                                        res.theta,
-                                        precision=smpl_lib.EXACT_PRECISION)
-        return EstimateAndFitResult(
-            joints2d=joints, conf=conf, theta=res.theta, beta=res.beta,
-            cam=res.cam, vertices=out.vertices, joints3d=out.joints,
-            energy=res.energy)
+        return self._finish(joints, conf, res, images)
+
+    # -- video --------------------------------------------------------------
+
+    def estimate_and_fit_video(self, frames, mode: str = "smooth"
+                               ) -> EstimateAndFitResult:
+        """One frame sequence (T, H, W, 3) → 2D joints → one
+        whole-sequence fit → posed meshes. ``mode``: "smooth" (the joint
+        sequence fit with Viterbi yaw, shared β and smoothness,
+        ``fitting/temporal.fit_video_smooth``, with
+        max(``fit_restarts``, 1) hypotheses per frame), "temporal" (the
+        reference's warm start, ``fit_video``) or "independent"
+        (per-frame cold starts). CPM precision follows the batch-size
+        policy at T."""
+        _check_frames(frames, "frames")
+        if mode not in ("smooth", "temporal", "independent"):
+            raise ValueError(f"unknown video mode: {mode!r}")
+        _, joints, conf = self._front_end(frames)
+        args = (self.smpl_model, joints, conf, self.fit_cfg, self.prior)
+        if mode == "smooth":
+            res = temporal.fit_video_smooth(
+                *args, restarts=max(self.fit_restarts, 1))
+        elif mode == "temporal":
+            res = temporal.fit_video(*args)
+        else:
+            res = temporal.fit_video_independent(*args)
+        return self._finish(joints, conf, res, frames)
+
+    def estimate_and_fit_video_stream(self, frames, chunk: int = 64
+                                      ) -> EstimateAndFitResult:
+        """Any-length video with bounded memory: the 2D front end in
+        ``cpm_microbatch``-frame micro-chunks (``chunk`` when
+        ``cpm_microbatch`` is 0), then the anchored chunked smooth fit
+        (``fitting/temporal.fit_video_stream``)."""
+        _check_frames(frames, "frames")
+        chunk2d = self.cpm_microbatch if self.cpm_microbatch > 0 else chunk
+        _, joints, conf = self._front_end(frames, chunk=chunk2d)
+        res = temporal.fit_video_stream(
+            self.smpl_model, joints, conf, self.fit_cfg, self.prior,
+            chunk=chunk, restarts=max(self.fit_restarts, 1))
+        return self._finish(joints, conf, res, frames)
+
+    def _video_window(self, cpm, frames: torch.Tensor,
+                      pad_mask: torch.Tensor, anchor=None):
+        """One window of a :class:`VideoSession`: the 2D front end, conf
+        multiplied by ``pad_mask`` (pad frames carry no weight), the
+        anchored smooth fit with the pads masked out. Returns (result,
+        the anchor for the next window: the window's last solution)."""
+        _, joints, conf = self._front_end(frames, cpm=cpm)
+        conf = conf * pad_mask[:, None]
+        res = temporal.fit_video_smooth(
+            self.smpl_model, joints, conf, self.fit_cfg, self.prior,
+            restarts=max(self.fit_restarts, 1), frame_mask=pad_mask,
+            anchor=anchor)
+        new_anchor = {"theta": res.theta[-1], "beta": res.beta[-1],
+                      "cam": res.cam[-1]}
+        return self._finish(joints, conf, res, frames), new_anchor
+
+
+def _concat(outs) -> EstimateAndFitResult:
+    if len(outs) == 1:
+        return outs[0]
+    return EstimateAndFitResult(*(torch.cat(fs) for fs in zip(*outs)))
+
+
+class VideoSession:
+    """Online single-person video: the incremental form of
+    :meth:`PoseEstimator.estimate_and_fit_video_stream` for frames that
+    arrive over time. Frames buffer on the estimator's device; each full
+    ``chunk``-frame window runs the 2D front end and the anchored smooth
+    fit, and its last solution anchors the next window (facing, boundary
+    smoothness and the shared β carry over). The CPM's precision is the
+    policy's at ``chunk`` frames.
+
+    ``push(frames)`` returns the results of the windows it completed, or
+    None. ``flush()`` runs the last partial window, padded with zero
+    images whose conf is zeroed and masked, and closes the session;
+    either call on a closed session raises ``RuntimeError``."""
+
+    def __init__(self, estimator: PoseEstimator, chunk: int = 64):
+        self._est = estimator
+        self.chunk = int(chunk)
+        self._cpm = estimator._params_for_batch(self.chunk)
+        self._buf: list = []
+        self._buffered = 0
+        self._anchor = None
+        self._closed = False
+
+    @property
+    def frames_buffered(self) -> int:
+        """Frames pushed but not yet run (fewer than ``chunk``)."""
+        return self._buffered
+
+    def _run_window(self, win: torch.Tensor,
+                    n_real: int) -> EstimateAndFitResult:
+        pad_mask = torch.ones(self.chunk, device=win.device)
+        if n_real < self.chunk:
+            win = torch.cat([win, win.new_zeros(
+                (self.chunk - n_real,) + win.shape[1:])])
+            pad_mask[n_real:] = 0.0
+        res, self._anchor = self._est._video_window(
+            self._cpm, win, pad_mask, anchor=self._anchor)
+        return EstimateAndFitResult(*(f[:n_real] for f in res))
+
+    def _take(self) -> torch.Tensor:
+        buf = torch.cat(self._buf) if len(self._buf) > 1 else self._buf[0]
+        self._buf = []
+        return buf
+
+    def push(self, frames) -> Optional[EstimateAndFitResult]:
+        if self._closed:
+            raise RuntimeError("session already flushed")
+        frames = self._est._tensor(frames)
+        if frames.dim() == 3:
+            frames = frames[None]
+        _check_frames(frames, "frames")
+        self._buf.append(frames)
+        self._buffered += frames.shape[0]
+        outs = []
+        while self._buffered >= self.chunk:
+            buf = self._take()
+            win, rest = buf[:self.chunk], buf[self.chunk:]
+            if rest.shape[0]:
+                self._buf = [rest]
+            self._buffered -= self.chunk
+            outs.append(self._run_window(win, self.chunk))
+        return _concat(outs) if outs else None
+
+    def flush(self) -> Optional[EstimateAndFitResult]:
+        if self._closed:
+            raise RuntimeError("session already flushed")
+        self._closed = True
+        if self._buffered == 0:
+            return None
+        buf = self._take()
+        self._buffered = 0
+        return self._run_window(buf, buf.shape[0])

@@ -121,16 +121,18 @@ def default_init(model: SMPLData, joints2d_norm: torch.Tensor,
     return {"theta": theta0, "beta": beta0, "cam": cam0}
 
 
-def _run_stage_adam(energy_fn, x: torch.Tensor, stage: StageConfig,
-                    mask: torch.Tensor, keep_history: bool):
-    """``stage.iters`` Adam steps from fresh state, with optax.adam's
+def _run_adam(energy_fn, x: torch.Tensor, iters: int, lr: float,
+              mask: Optional[torch.Tensor] = None,
+              keep_history: bool = False):
+    """``iters`` Adam steps on ``x`` from fresh state, with optax.adam's
     update in its order of operations: moments ``(1−b)·g + b·m``, bias
     correction ``1 − b^t`` in float32, update ``m̂ / (√(v̂ + eps_root) +
-    eps) · (−lr)``. Gradients are masked before the update."""
+    eps) · (−lr)``. The gradient is of ``energy_fn(x).sum()``, masked
+    (when ``mask`` is given) before the update."""
     mu = torch.zeros_like(x)
     nu = torch.zeros_like(x)
     hist = []
-    for t in range(1, stage.iters + 1):
+    for t in range(1, iters + 1):
         x = x.detach().requires_grad_(True)
         with torch.enable_grad():
             e = energy_fn(x)
@@ -138,7 +140,8 @@ def _run_stage_adam(energy_fn, x: torch.Tensor, stage: StageConfig,
         if keep_history:
             hist.append(e.detach())
         with torch.no_grad():
-            g = g * mask
+            if mask is not None:
+                g = g * mask
             mu = (1 - _B1) * g + _B1 * mu
             nu = (1 - _B2) * (g * g) + _B2 * nu
             bc1 = float(np.float32(1) - np.power(np.float32(_B1),
@@ -146,8 +149,20 @@ def _run_stage_adam(energy_fn, x: torch.Tensor, stage: StageConfig,
             bc2 = float(np.float32(1) - np.power(np.float32(_B2),
                                                   np.float32(t)))
             update = (mu / bc1) / (torch.sqrt(nu / bc2 + _EPS_ROOT) + _EPS)
-            x = x + update * (-stage.lr)
+            x = x + update * (-lr)
     return x.detach(), hist
+
+
+def check_ported(cfg: FitConfig) -> None:
+    """Raise ``NotImplementedError`` for the fit options the port does not
+    have yet: the L-BFGS stage and the interpenetration term (A.14)."""
+    if cfg.optimizer != "adam":
+        raise NotImplementedError(
+            f"optimizer {cfg.optimizer!r} is not ported yet (L-BFGS: "
+            f"ROADMAP.md A.14)")
+    if any(s.w_interpenetration > 0.0 for s in cfg.stages):
+        raise NotImplementedError(
+            "the interpenetration term is not ported yet (ROADMAP.md A.14)")
 
 
 def fit_smpl_batch(model: SMPLData, joints2d: torch.Tensor,
@@ -157,13 +172,7 @@ def fit_smpl_batch(model: SMPLData, joints2d: torch.Tensor,
     """Fit SMPL pose/shape/camera to a batch of 2D joints: joints2d
     (B, P, 2) pixels in CPM order, conf (B, P). ``init`` optionally warm
     starts from {'theta', 'beta', 'cam'} batched tensors."""
-    if cfg.optimizer != "adam":
-        raise NotImplementedError(
-            f"optimizer {cfg.optimizer!r} is not ported yet (L-BFGS: "
-            f"ROADMAP.md A.14)")
-    if any(s.w_interpenetration > 0.0 for s in cfg.stages):
-        raise NotImplementedError(
-            "the interpenetration term is not ported yet (ROADMAP.md A.14)")
+    check_ported(cfg)
     obs = _normalize_obs(joints2d, cfg)
     params = default_init(model, obs, conf, cfg) if init is None else init
     x = torch.cat([params["theta"], params["beta"], params["cam"]],
@@ -173,9 +182,9 @@ def fit_smpl_batch(model: SMPLData, joints2d: torch.Tensor,
         def energy_fn(x, stage=stage):
             return fit_energy(_split(x, cfg), model, obs, conf, stage, cfg,
                               prior)
-        x, hist = _run_stage_adam(energy_fn, x, stage,
-                                  _stage_mask(stage, cfg, x.device),
-                                  cfg.keep_history)
+        x, hist = _run_adam(energy_fn, x, stage.iters, stage.lr,
+                            _stage_mask(stage, cfg, x.device),
+                            cfg.keep_history)
         hists += hist
     with torch.no_grad():
         final_e = fit_energy(_split(x, cfg), model, obs, conf,

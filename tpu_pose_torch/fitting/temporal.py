@@ -1,0 +1,255 @@
+"""Temporal / video fitting (port of ``tpu_pose/fitting/temporal.py``).
+
+- :func:`fit_video`: the reference's temporal init — a multi-start fit of
+  frame 0, short warm-started fits frame by frame, then every frame
+  refined together with the last stage.
+- :func:`fit_video_independent`: every frame cold-started, batched.
+- :func:`fit_video_smooth`: one joint whole-sequence optimization — per
+  frame all yaw hypotheses of a multi-start fit, the consistent path
+  through them (:func:`_viterbi_select`), then Adam over the whole
+  sequence with one shared β and temporal smoothness.
+- :func:`fit_video_stream`: :func:`fit_video_smooth` over fixed-size
+  chunks, each anchored to the previous chunk's last solution.
+
+The JAX package's ``lax.scan`` loops are Python loops over device
+tensors here; nothing reads a device value on the host.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Optional
+
+import torch
+
+from tpu_pose_torch.fitting.energy import fit_energy
+from tpu_pose_torch.fitting.fit import (FitResult, _normalize_obs, _run_adam,
+                                        check_ported, fit_smpl_batch,
+                                        fit_smpl_multistart, fit_smpl_single)
+from tpu_pose_torch.models.smpl_data import SMPLData
+from tpu_pose_torch.utils.config import FitConfig
+
+
+def warmstart_schedule(cfg: FitConfig, iters: int = 30) -> FitConfig:
+    """Truncated single-stage schedule for the sequential pass: the last
+    stage with ``iters`` steps."""
+    stage = dataclasses.replace(cfg.stages[-1], iters=iters)
+    return dataclasses.replace(cfg, stages=(stage,))
+
+
+def _params(res) -> dict:
+    return {"theta": res.theta, "beta": res.beta, "cam": res.cam}
+
+
+def fit_video(model: SMPLData, joints2d_seq: torch.Tensor,
+              conf_seq: torch.Tensor, cfg: FitConfig = FitConfig(),
+              prior: Any = None, warm_iters: int = 30,
+              anchor_restarts: int = 4) -> FitResult:
+    """Temporal-init video fit, joints2d_seq (T, P, 2) pixels, conf_seq
+    (T, P). Frame 0 gets a multi-start staged fit (``anchor_restarts`` >
+    1); frames 1..T−1 each get ``warm_iters`` steps of the last stage
+    seeded from frame t−1's solution, one after another; then every frame
+    is refined together with the full last stage."""
+    check_ported(cfg)
+    if anchor_restarts > 1:
+        first = fit_smpl_multistart(model, joints2d_seq[:1], conf_seq[:1],
+                                    cfg, prior, restarts=anchor_restarts)
+        first = FitResult(*(f[0] for f in first))
+    else:
+        first = fit_smpl_single(model, joints2d_seq[0], conf_seq[0], cfg,
+                                prior)
+    warm_cfg = warmstart_schedule(cfg, warm_iters)
+    seq = [_params(first)]
+    for t in range(1, joints2d_seq.shape[0]):
+        seq.append(_params(fit_smpl_single(model, joints2d_seq[t],
+                                           conf_seq[t], warm_cfg, prior,
+                                           init=seq[-1])))
+    init = {k: torch.stack([p[k] for p in seq]) for k in seq[0]}
+    refine_cfg = warmstart_schedule(cfg, cfg.stages[-1].iters)
+    return fit_smpl_batch(model, joints2d_seq, conf_seq, refine_cfg, prior,
+                          init)
+
+
+def fit_video_independent(model: SMPLData, joints2d_seq: torch.Tensor,
+                          conf_seq: torch.Tensor,
+                          cfg: FitConfig = FitConfig(),
+                          prior: Any = None) -> FitResult:
+    """Every frame cold-started, fitted as one batch."""
+    return fit_smpl_batch(model, joints2d_seq, conf_seq, cfg, prior)
+
+
+def _viterbi_select(energy: torch.Tensor, glob: torch.Tensor,
+                    weight: float,
+                    anchor_glob: Optional[torch.Tensor] = None,
+                    frame_mask: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """Minimum-cost hypothesis path through the (frame × restart) lattice:
+    energy (T, R) as unary cost, ``weight``·‖Δ global orientation‖²
+    (glob (T, R, 3)) between consecutive frames' hypotheses. NaN energies
+    count as +inf. Frames with ``frame_mask`` 0 add no unary and no
+    transition cost (``where``, not a product: a diverged pad hypothesis
+    has e = inf, and inf·0 = NaN). ``anchor_glob`` (3,) adds a transition
+    from a virtual frame −1. Ties go to the first index, as ``jnp.argmin``.
+    Returns (T,) int32 selections, computed on the device."""
+    e = torch.where(torch.isnan(energy), math.inf, energy)
+    n = e.shape[0]
+    if frame_mask is not None:
+        e = torch.where(frame_mask[:, None] > 0, e, 0.0)
+        step_w = weight * frame_mask[1:] * frame_mask[:-1]
+    else:
+        step_w = torch.full((n - 1,), weight, device=e.device)
+    if anchor_glob is not None:
+        e0 = e[0] + weight * ((glob[0] - anchor_glob[None, :]) ** 2).sum(-1)
+        e = torch.cat([e0[None], e[1:]])
+    cost, backs = e[0], []
+    for t in range(1, n):
+        trans = ((glob[t][None, :, :] - glob[t - 1][:, None, :]) ** 2
+                 ).sum(-1)                                   # (R_prev, R)
+        tot = cost[:, None] + step_w[t - 1] * trans + e[t][None, :]
+        cost, arg = tot.min(dim=0)
+        backs.append(arg)
+    path = [cost.argmin().reshape(1)]
+    for bp in reversed(backs):
+        path.append(bp.index_select(0, path[-1]))
+    return torch.cat(path[::-1]).to(torch.int32)
+
+
+def fit_video_smooth(model: SMPLData, joints2d_seq: torch.Tensor,
+                     conf_seq: torch.Tensor, cfg: FitConfig = FitConfig(),
+                     prior: Any = None, restarts: int = 4,
+                     select_weight: Optional[float] = None,
+                     smooth_theta: Optional[float] = None,
+                     smooth_cam: Optional[float] = None,
+                     shared_beta: bool = True, iters: int = 100,
+                     lr: float = 0.01, anchor: Optional[dict] = None,
+                     frame_mask: Optional[torch.Tensor] = None
+                     ) -> FitResult:
+    """Joint whole-sequence fit, joints2d_seq (T, P, 2) pixels, conf_seq
+    (T, P):
+
+    1. per frame, all ``restarts`` yaw hypotheses of
+       :func:`fit_smpl_multistart` (one batch of T·R fits);
+    2. the consistent hypothesis path (:func:`_viterbi_select`);
+    3. ``iters`` Adam steps (``lr``) over θ (T, 72), β ((10,) shared, or
+       (T, 10)) and cam (T, 3) together, on Σ_t fit energy at the last
+       stage + ``smooth_theta``·s²·Σ‖Δθ‖² + ``smooth_cam``·s²·Σ‖Δcam‖²
+       (s = the observation scale, as for the priors).
+
+    ``anchor`` ({'theta', 'beta', 'cam'} of the frame before the
+    sequence) adds a transition cost to the selection, fixes the shared
+    β's init and adds boundary smoothness terms. ``frame_mask`` (T,)
+    excludes mask-0 frames (stream pads) from the data, smoothness and
+    selection costs and from the shared β's init. The weights default to
+    ``cfg.video_select_weight`` / ``video_smooth_theta`` /
+    ``video_smooth_cam``. ``beta`` comes back (T, 10) either way;
+    ``energy_history`` has shape (0,)."""
+    check_ported(cfg)
+    select_weight = (cfg.video_select_weight if select_weight is None
+                     else select_weight)
+    smooth_theta = (cfg.video_smooth_theta if smooth_theta is None
+                    else smooth_theta)
+    smooth_cam = cfg.video_smooth_cam if smooth_cam is None else smooth_cam
+    n = joints2d_seq.shape[0]
+    if restarts > 1:
+        every = fit_smpl_multistart(model, joints2d_seq, conf_seq, cfg,
+                                    prior, restarts=restarts,
+                                    return_all=True)           # (T, R, ...)
+        sel = _viterbi_select(
+            every.energy, every.theta[..., :3], select_weight,
+            anchor_glob=None if anchor is None else anchor["theta"][:3],
+            frame_mask=frame_mask).long()
+        rows = torch.arange(n, device=sel.device)
+        base = FitResult(*(f[rows, sel] for f in every))
+    else:
+        base = fit_video_independent(model, joints2d_seq, conf_seq, cfg,
+                                     prior)
+
+    if anchor is not None and shared_beta:
+        beta0 = anchor["beta"]
+    elif shared_beta and frame_mask is not None:
+        # Masked mean: pad frames' β hypotheses must not leak in.
+        w = frame_mask.to(base.beta.dtype)
+        beta0 = (base.beta * w[:, None]).sum(0) / (w.sum() + 1e-8)
+    else:
+        beta0 = base.beta.mean(0) if shared_beta else base.beta
+    obs = _normalize_obs(joints2d_seq, cfg)
+    stage = cfg.stages[-1]
+    scale = (2.0 / cfg.img_size) if cfg.normalize_obs else 1.0
+    s2 = scale * scale
+    n_theta, n_beta = base.theta[0].numel(), beta0.numel()
+
+    def split(x):
+        theta = x[:n * n_theta].reshape(n, -1)
+        beta = x[n * n_theta:n * n_theta + n_beta].reshape(beta0.shape)
+        cam = x[n * n_theta + n_beta:].reshape(n, -1)
+        if shared_beta:
+            beta = beta.expand(n, -1)
+        return {"theta": theta, "beta": beta, "cam": cam}
+
+    def frame_energies(p):
+        e = fit_energy(p, model, obs, conf_seq, stage, cfg, prior)
+        # where(), not a product: a NaN/inf pad energy times 0 is NaN.
+        return e if frame_mask is None else torch.where(frame_mask > 0, e,
+                                                        0.0)
+
+    step_mask = (torch.ones(n - 1, device=obs.device) if frame_mask is None
+                 else frame_mask[1:] * frame_mask[:-1])
+
+    def total_energy(x):
+        p = split(x)
+        dth = p["theta"][1:] - p["theta"][:-1]
+        dca = p["cam"][1:] - p["cam"][:-1]
+        e = (frame_energies(p).sum()
+             + smooth_theta * s2 * (step_mask * (dth * dth).sum(-1)).sum()
+             + smooth_cam * s2 * (step_mask * (dca * dca).sum(-1)).sum())
+        if anchor is not None:
+            dth0 = p["theta"][0] - anchor["theta"]
+            dca0 = p["cam"][0] - anchor["cam"]
+            e = (e + smooth_theta * s2 * (dth0 * dth0).sum()
+                 + smooth_cam * s2 * (dca0 * dca0).sum())
+        return e
+
+    x = torch.cat([base.theta.reshape(-1), beta0.reshape(-1),
+                   base.cam.reshape(-1)]).to(torch.float32)
+    x, _ = _run_adam(total_energy, x, iters, lr)
+    p = split(x)
+    with torch.no_grad():
+        energy = frame_energies(p)
+    return FitResult(theta=p["theta"], beta=p["beta"].contiguous(),
+                     cam=p["cam"], energy=energy,
+                     energy_history=torch.zeros(0, device=x.device))
+
+
+def fit_video_stream(model: SMPLData, joints2d_seq: torch.Tensor,
+                     conf_seq: torch.Tensor, cfg: FitConfig = FitConfig(),
+                     prior: Any = None, chunk: int = 64,
+                     **smooth_kw) -> FitResult:
+    """Arbitrary-length video as anchored ``chunk``-frame
+    :func:`fit_video_smooth` calls: chunk i+1 takes chunk i's last real
+    solution as its ``anchor``. The final partial chunk is padded by
+    repeating its last frame with zero confidence and masked
+    (``frame_mask``), so every chunk has the same shape. Returns the
+    concatenated (T, ...) results."""
+    t_total = joints2d_seq.shape[0]
+    if t_total <= chunk:
+        return fit_video_smooth(model, joints2d_seq, conf_seq, cfg, prior,
+                                **smooth_kw)
+    outs, anchor = [], None
+    for start in range(0, t_total, chunk):
+        j = joints2d_seq[start:start + chunk]
+        c = conf_seq[start:start + chunk]
+        n_real = j.shape[0]
+        mask = torch.ones(chunk, device=j.device)
+        if n_real < chunk:
+            reps = chunk - n_real
+            j = torch.cat([j, j[-1:].expand(reps, *j.shape[1:])])
+            c = torch.cat([c, c.new_zeros((reps,) + c.shape[1:])])
+            mask[n_real:] = 0.0
+        res = fit_video_smooth(model, j, c, cfg, prior, anchor=anchor,
+                               frame_mask=mask, **smooth_kw)
+        anchor = {"theta": res.theta[n_real - 1],
+                  "beta": res.beta[n_real - 1],
+                  "cam": res.cam[n_real - 1]}
+        outs.append(FitResult(*(f[:n_real] for f in res)))
+    return FitResult(*(torch.cat(fs) for fs in zip(*outs)))

@@ -33,12 +33,13 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from tpu_pose_torch.models import joints as joints_lib
 from tpu_pose_torch.ops import cuda_kernels
 from tpu_pose_torch.ops import preprocess as pre
 from tpu_pose_torch.ops import quantize as quant_lib
 from tpu_pose_torch.ops import softargmax as decode_lib
 from tpu_pose_torch.utils.config import CPMConfig
-from tpu_pose_torch.utils.device import resolve_device
+from tpu_pose_torch.utils.device import full_f32_matmul, resolve_device
 
 
 def _layer_defs(cfg: CPMConfig):
@@ -491,6 +492,132 @@ def _decode(heatmaps: torch.Tensor, cfg: CPMConfig, beta: float):
                      f"'torch'")
 
 
+def estimate_person_centers(stage1_beliefs: torch.Tensor,
+                            cfg: CPMConfig = CPMConfig()) -> torch.Tensor:
+    """(B, h, h, P+1) stage-1 beliefs → (B, 2) person centers in input
+    pixels: the spatial expectation of the foreground mass (max over the
+    part channels) under softmax(50·(fg − max))."""
+    fg = stage1_beliefs[..., :-1].amax(dim=-1)               # (B, h, w)
+    b, h, w = fg.shape
+    flat = fg.reshape(b, h * w)
+    m = flat.amax(dim=-1, keepdim=True)
+    p = torch.softmax(50.0 * (flat - m), dim=-1).reshape(b, h, w)
+    ys = torch.arange(h, dtype=torch.float32, device=fg.device) * cfg.stride
+    xs = torch.arange(w, dtype=torch.float32, device=fg.device) * cfg.stride
+    cy = torch.einsum("bhw,h->b", p, ys)
+    cx = torch.einsum("bhw,w->b", p, xs)
+    return torch.stack([cx, cy], dim=-1)
+
+
+def estimate_person_geometry(stage1_beliefs: torch.Tensor,
+                             cfg: CPMConfig = CPMConfig(),
+                             beta: float = 30.0):
+    """Stage-1 beliefs (B, h, h, P+1) → per-image person center and
+    scale in input pixels: a per-part soft-argmax at ``beta`` (through
+    :func:`_decode`, so kernel B1 on the card), then
+    :func:`person_geometry_from_joints`. Returns (centers (B, 2) px,
+    extent_px (B,))."""
+    joints, conf = _decode(stage1_beliefs, cfg, beta)
+    return person_geometry_from_joints(joints, conf)
+
+
+def person_geometry_from_joints(joints: torch.Tensor, conf: torch.Tensor):
+    """Decoded joints (..., P, 2) + conf (..., P) → (centers (..., 2),
+    extent_px (...,)): the confidence-weighted center and the
+    confidence-weighted L∞ extent around it. Conf is the raw per-part max
+    belief, which can be negative, so it is clamped to 1e-6 first."""
+    conf = torch.clamp_min(conf, 1e-6)
+    w = conf / (conf.sum(dim=-1, keepdim=True) + 1e-8)
+    centers = (w[..., None] * joints).sum(dim=-2)
+    d = (joints - centers[..., None, :]).abs().amax(dim=-1)         # L∞
+    wmax = conf / (conf.amax(dim=-1, keepdim=True) + 1e-8)
+    extent = (d * torch.sqrt(wmax)).amax(dim=-1)
+    return centers, extent
+
+
+def crop_index_translation(s: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """The true index-space translation of :func:`_crop_zoom`: its ``t``
+    is in the half-pixel-center convention, so content maps as
+    ``crop_idx = net_idx · s + (t + 0.5·(s − 1))``. Every joint ↔ crop
+    conversion uses this; the raw ``t`` would bias mapped-back joints by
+    0.5·(s − 1) px."""
+    return t + 0.5 * (s[..., None] - 1.0)
+
+
+def crop_affine_from_geometry(centers: torch.Tensor,
+                              extent_px: torch.Tensor,
+                              cfg: CPMConfig = CPMConfig(),
+                              target_frac: float = 0.6,
+                              max_zoom: float = 3.0,
+                              min_zoom: float = 0.5):
+    """(centers, extent) → per-image crop affine (s (B,), t (B, 2)) for
+    :func:`_crop_zoom`: the zoom that maps the extent to ``target_frac``
+    of the half-frame, clamped to [min_zoom, max_zoom], and the
+    translation that maps the center to the frame center (S−1)/2 under
+    the true index mapping, t = S/2 − (c + 0.5)·s."""
+    half = cfg.input_size / 2.0
+    s = target_frac * half / torch.clamp_min(extent_px, 1e-3)
+    s = torch.clamp(s, min_zoom, max_zoom)
+    t = half - (centers + 0.5) * s[..., None]
+    return s, t
+
+
+_F32_EPS = float(np.finfo(np.float32).eps)
+
+
+def _zoom_weights(n: int, s: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """(B, n_out, n_in) resampling matrices of one axis of
+    ``jax.image.scale_and_translate(method="linear")`` (its
+    ``compute_weight_mat``) for per-image scale ``s`` (B,) and translation
+    ``t`` (B,): sample coordinate (i + 0.5)/s − t/s − 0.5, triangle kernel
+    widened by max(1/s, 1) (antialiasing), each output's weights
+    normalized where their sum exceeds 1000·eps, and outputs whose sample
+    falls outside [−0.5, n − 0.5] zeroed. Computed on the device."""
+    grid = torch.arange(n, dtype=torch.float32, device=s.device)
+    inv = 1.0 / s
+    kernel_scale = torch.clamp_min(inv, 1.0)
+    sample = ((grid[None, :] + 0.5) * inv[:, None] - t[:, None] * inv[:, None]
+              - 0.5)                                          # (B, n_out)
+    x = ((sample[:, :, None] - grid[None, None, :]).abs()
+         / kernel_scale[:, None, None])
+    w = torch.clamp_min(1.0 - x, 0.0)
+    total = w.sum(dim=-1, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * _F32_EPS,
+                    w / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= n - 0.5)
+    return torch.where(inside[..., None], w, 0.0)
+
+
+def _crop_zoom(images_net: torch.Tensor, s: torch.Tensor, t: torch.Tensor,
+               fill: float = 0.0) -> torch.Tensor:
+    """Per-image crop affines (s (B,), t (B, 2) as (tx, ty)) applied to
+    the preprocessed (B, S, S, C) batch, as ``jax.image.scale_and_translate``
+    does it: one weight matrix per axis and image, then two batched
+    products in full float32 (TF32 off, JAX's ``Precision.HIGHEST``).
+    Out-of-window regions fill with ``fill`` (0 = mid-gray in the
+    normalized space), through the weights' row sums. Returns NHWC
+    memory, the layout the CPM's convs keep."""
+    size = images_net.shape[1]
+    wy = _zoom_weights(size, s, t[:, 1])
+    wx = _zoom_weights(size, s, t[:, 0])
+    with full_f32_matmul():
+        out = torch.einsum("boh,bhwc->bowc", wy, images_net)
+        out = torch.einsum("bpw,bowc->bopc", wx, out)
+    if fill != 0.0:
+        cov = wy.sum(-1)[:, :, None, None] * wx.sum(-1)[:, None, :, None]
+        out = out + (1.0 - cov) * fill
+    return out.contiguous()
+
+
+def joints_from_crop_frame(joints_crop: torch.Tensor, s: torch.Tensor,
+                           t: torch.Tensor) -> torch.Tensor:
+    """Map (B, P, 2) crop-frame joints back to the network frame through
+    the inverse of :func:`_crop_zoom`'s true index affine
+    (:func:`crop_index_translation`, not the raw ``t``)."""
+    t_idx = crop_index_translation(s, t)
+    return (joints_crop - t_idx[..., None, :]) / s[..., None, None]
+
+
 def estimate_2d_from_images(cpm, images: torch.Tensor,
                             cfg: CPMConfig = CPMConfig(),
                             beta: float = 100.0,
@@ -498,34 +625,152 @@ def estimate_2d_from_images(cpm, images: torch.Tensor,
                             refine_scale: bool = False,
                             letterbox: bool = False,
                             source_frame: bool = True,
+                            scale_target_frac: float = 0.6,
+                            max_zoom: float = 3.0,
                             scale_from_refined: bool = False,
+                            scale_iters: int = 1,
                             flip_tta: bool = False,
                             scale_tta: tuple = ()):
     """Raw (uint8 or float) images (B, H₀, W₀, 3) → heatmaps (B, 46, 46,
-    P+1), joints_px (B, P, 2), conf (B, P): resize, normalize, the CPM with
-    a centered center map, and the decode.
+    P+1), joints_px (B, P, 2), conf (B, P): resize (or ``letterbox``),
+    normalize, the CPM, the decode — with the accuracy front end:
 
-    The accuracy front end (``refine_center``, ``refine_scale``,
-    ``scale_from_refined``, ``flip_tta``, ``scale_tta``, ``letterbox``) is
-    not ported yet: a non-default value raises ``NotImplementedError``
-    (ROADMAP.md A.10). ``source_frame`` only matters with letterbox."""
-    del source_frame
-    on = [name for name, v in (
-        ("refine_center", refine_center), ("refine_scale", refine_scale),
-        ("letterbox", letterbox), ("scale_from_refined", scale_from_refined),
-        ("flip_tta", flip_tta),
-        ("scale_tta", any(float(s) != 1.0 for s in scale_tta))) if v]
-    if on:
-        raise NotImplementedError(
-            f"{on} not ported yet (ROADMAP.md A.10: accuracy front end)")
-    x = pre.preprocess(images, cfg.input_size)
-    cmap = None
-    if cfg.use_center_map:
-        cm = pre.gaussian_center_map(cfg.input_size, cfg.center_sigma,
-                                     device=x.device)
-        cmap = cm.expand(x.shape[0], *cm.shape)
-    heatmaps = cpm_forward(cpm, x, cmap, cfg)[-1]
-    joints, conf = _decode(heatmaps, cfg, beta)
+    - ``refine_center``: the refinement stages' hint is a per-image
+      Gaussian at the person center estimated from the stage-1 beliefs
+      (:func:`estimate_person_geometry`), not the frame center.
+    - ``refine_scale``: ``scale_iters`` rounds of stage-1 geometry → crop
+      affine (:func:`crop_affine_from_geometry`, zoom clamped to
+      ``max_zoom``) → :func:`_crop_zoom` of the net frame → stage 1
+      again; the full network then runs on the crop and its joints map
+      back. Each round recomputes the total affine, so resampling happens
+      once. ``scale_from_refined`` takes round 1's geometry from the full
+      refined decode instead. Heatmaps are then in the crop frame.
+    - ``flip_tta``: the whole pipeline again on the mirrored frame, joints
+      mapped back (x → S−1−x, left ↔ right per ``CPM_FLIP_PERM``).
+    - ``scale_tta``: the whole pipeline on centered zooms of the net frame
+      (t = (S/2)(1 − s)), s == 1 skipped, each joint set mapped back; with
+      ``refine_scale`` the view's affine composes into the crop.
+    - All passes merge by confidence-weighted joint averaging, conf = the
+      passes' mean; the heatmaps returned are the base pass's.
+    - ``letterbox`` with ``source_frame``: joints in source pixels;
+      otherwise in the network frame.
+
+    Every soft-argmax (the β = 30 geometry decodes and the final decodes)
+    goes through :func:`_decode`, so through kernel B1 on the card."""
+    x = pre.preprocess(images, cfg.input_size, letterbox=letterbox)
+    conv, dtype = _make_conv(cpm, cfg)
+    size = cfg.input_size
+
+    def centered_cmap(n):
+        cm = pre.gaussian_center_map(size, cfg.center_sigma, device=x.device)
+        return cm.expand(n, *cm.shape)
+
+    def stage1(xn):
+        trunk1, b1 = _stage1_forward(conv, xn.permute(0, 3, 1, 2))
+        return trunk1, b1, b1.permute(0, 2, 3, 1)
+
+    def run_net(xn, base=None, view_affine=None):
+        """Stage 1 → (refine_scale crop) → refinement stages → decode on
+        one preprocessed net-frame batch. ``base``/``view_affine``: ``xn``
+        is the zoom of ``base`` under ``view_affine = (s, t)``; with
+        ``refine_scale`` the affine composes into the crop and the joints
+        come back in ``base``'s frame, otherwise in ``xn``'s."""
+        trunk1, b1, b1_nhwc = stage1(xn)
+        rc = refine_center
+        crop_s = crop_t = None
+        if refine_scale:
+            x0 = xn if base is None else base
+            b = xn.shape[0]
+            if view_affine is None:
+                crop_s = torch.ones(b, device=xn.device)
+                crop_t = torch.zeros(b, 2, device=xn.device)
+            else:
+                crop_s, crop_t = view_affine
+            for it in range(max(1, scale_iters)):
+                if it == 0 and scale_from_refined and cfg.num_stages > 1:
+                    cmap0 = (centered_cmap(b) if cfg.use_center_map
+                             else None)
+                    hm1 = _refine_forward(conv, dtype, xn.permute(0, 3, 1, 2),
+                                          trunk1, b1, cmap0, cfg,
+                                          cfg.num_stages)[-1]
+                    j1, c1 = _decode(hm1.permute(0, 2, 3, 1), cfg, beta)
+                    centers, extent = person_geometry_from_joints(j1, c1)
+                else:
+                    centers, extent = estimate_person_geometry(b1_nhwc, cfg)
+                # Crop-frame geometry → net frame → the new total affine.
+                centers_net = (centers - crop_index_translation(
+                    crop_s, crop_t)) / crop_s[..., None]
+                extent_net = extent / crop_s
+                crop_s, crop_t = crop_affine_from_geometry(
+                    centers_net, extent_net, cfg,
+                    target_frac=scale_target_frac, max_zoom=max_zoom)
+                xn = _crop_zoom(x0, crop_s, crop_t)
+                trunk1, b1, b1_nhwc = stage1(xn)
+            rc = False      # the crop is person-centered
+        cmap = None
+        if cfg.use_center_map:
+            if rc:
+                centers, _ = estimate_person_geometry(b1_nhwc, cfg)
+                cmap = pre.gaussian_center_maps(size, cfg.center_sigma,
+                                                centers)
+            else:
+                cmap = centered_cmap(xn.shape[0])
+        if cfg.num_stages == 1:
+            heatmaps = b1_nhwc
+        else:
+            heatmaps = _refine_forward(conv, dtype, xn.permute(0, 3, 1, 2),
+                                       trunk1, b1, cmap, cfg,
+                                       cfg.num_stages)[-1].permute(0, 2, 3, 1)
+        joints, conf = _decode(heatmaps, cfg, beta)
+        if crop_s is not None:
+            joints = joints_from_crop_frame(joints, crop_s, crop_t)
+        return heatmaps, joints, conf
+
+    heatmaps, joints, conf = run_net(x)
+    scales = [float(s) for s in scale_tta if float(s) != 1.0]
+    if flip_tta or scales:
+        perm = joints_lib.cpm_flip_index(x.device)
+
+        def mirror_back(j, c):
+            # Pixel p ↔ (S−1)−p under the flip (pixel centers at
+            # integers), then left ↔ right channels.
+            j = torch.stack([(size - 1.0) - j[..., 0], j[..., 1]], dim=-1)
+            return j.index_select(1, perm), c.index_select(1, perm)
+
+        b = x.shape[0]
+        # t = (S/2)(1−s) puts the zoom's fixed point at (S−1)/2, the
+        # mirror's, so the centered zoom and the flip commute exactly.
+        half = size / 2.0
+        views = [(x, None, None)]
+        for s in scales:
+            sv = torch.full((b,), s, device=x.device)
+            tv = torch.full((b, 2), half * (1.0 - s), device=x.device)
+            views.append((_crop_zoom(x, sv, tv), sv, tv))
+        xm = x.flip(2) if flip_tta else None
+        passes = [(joints, conf)]
+        for i, (xv, sv, tv) in enumerate(views):
+            aff = None if sv is None else (sv, tv)
+            # With refine_scale run_net returns base-frame joints itself.
+            unscale = aff is not None and not refine_scale
+            if i > 0:
+                _, j_s, c_s = run_net(xv, base=x, view_affine=aff)
+                if unscale:
+                    j_s = joints_from_crop_frame(j_s, sv, tv)
+                passes.append((j_s, c_s))
+            if flip_tta:
+                _, j_f, c_f = run_net(xv.flip(2), base=xm, view_affine=aff)
+                j_f, c_f = mirror_back(j_f, c_f)
+                if unscale:
+                    j_f = joints_from_crop_frame(j_f, sv, tv)
+                passes.append((j_f, c_f))
+        js = torch.stack([j for j, _ in passes])        # (N, B, P, 2)
+        cs = torch.stack([c for _, c in passes])        # (N, B, P)
+        joints = ((js * cs[..., None]).sum(0)
+                  / (cs.sum(0) + 1e-8)[..., None])
+        conf = cs.mean(0)
+    if letterbox and source_frame:
+        joints = pre.joints_to_source_frame(joints, pre.letterbox_affine(
+            images.shape[1], images.shape[2], size))
     return heatmaps, joints, conf
 
 

@@ -33,6 +33,13 @@ def _cpm_to_smpl_index(device: torch.device) -> torch.Tensor:
     return torch.as_tensor(CPM_TO_SMPL, dtype=torch.long, device=device)
 
 
+@functools.lru_cache(maxsize=None)
+def cpm_flip_index(device: torch.device) -> torch.Tensor:
+    """:data:`CPM_FLIP_PERM` as a long tensor on ``device``, one copy per
+    device (the flip-TTA merge indexes with it on the card)."""
+    return torch.as_tensor(CPM_FLIP_PERM, dtype=torch.long, device=device)
+
+
 def select_smpl_joints(joints3d_smpl24: torch.Tensor) -> torch.Tensor:
     """(..., 24, 3) SMPL joints → (..., 14, 3) in CPM order."""
     return joints3d_smpl24.index_select(

@@ -1,6 +1,6 @@
-"""Image preprocessing (port of ``tpu_pose/ops/preprocess.py``): resize →
-x/256 − 0.5, and the Gaussian person-center map with its 9×9/stride-8
-average-pool downsample.
+"""Image preprocessing (port of ``tpu_pose/ops/preprocess.py``): resize
+or letterbox → x/256 − 0.5, the letterbox's frame maps, and the Gaussian
+person-center map with its 9×9/stride-8 average-pool downsample.
 
 Images are NHWC, batched over a leading axis: ``(B, H, W, 3)``.
 """
@@ -28,12 +28,13 @@ def _resize_weights_np(n_in: int, n_out: int) -> np.ndarray:
     downscaling (antialiasing), columns renormalized, samples outside the
     input zeroed. Computed in float32 in XLA's order of operations: the
     sample coordinates round at float32 resolution (~3e-5 at 500 px), so
-    float64 weights would differ from JAX's by that much. XLA fuses the
-    coordinate's multiply and subtract into one FMA (one rounding); the
-    float64 product of two float32 values is exact, so rounding
-    ``(i + 0.5)·s − 0.5`` from float64 once reproduces it."""
+    float64 weights would differ from JAX's by that much. JAX takes the
+    scale as a Python float and inverts it in float64 before rounding to
+    float32. XLA fuses the coordinate's multiply and subtract into one FMA
+    (one rounding); the float64 product of two float32 values is exact,
+    so rounding ``(i + 0.5)·s − 0.5`` from float64 once reproduces it."""
     f32 = np.float32
-    inv_scale = f32(1.0) / f32(n_out / n_in)
+    inv_scale = f32(1.0 / (n_out / n_in))
     kernel_scale = max(inv_scale, f32(1.0))
     sample_f = ((np.arange(n_out, dtype=np.float64) + 0.5)
                 * np.float64(inv_scale) - 0.5).astype(f32)
@@ -48,28 +49,97 @@ def _resize_weights_np(n_in: int, n_out: int) -> np.ndarray:
     return np.ascontiguousarray(w.T.astype(f32))          # (n_out, n_in)
 
 
-def resize_image(img: torch.Tensor, size: int) -> torch.Tensor:
-    """(..., H, W, C) → (..., size, size, C) float32, bilinear with
+def resize_image(img: torch.Tensor, size) -> torch.Tensor:
+    """(..., H, W, C) → (..., nh, nw, C) float32, bilinear with
     ``jax.image.resize``'s antialiasing, as two small matmuls (one per
-    axis). Cast only when the image already has the target size."""
+    axis). ``size`` is ``nh = nw`` or ``(nh, nw)``. Cast only when the
+    image already has the target size."""
+    nh, nw = (size, size) if isinstance(size, int) else size
     img = img.to(torch.float32)
     h, w = img.shape[-3], img.shape[-2]
-    if h == size and w == size:
+    if h == nh and w == nw:
         return img
-    wy = torch.as_tensor(_resize_weights_np(h, size), device=img.device)
-    wx = torch.as_tensor(_resize_weights_np(w, size), device=img.device)
+    wy = torch.as_tensor(_resize_weights_np(h, nh), device=img.device)
+    wx = torch.as_tensor(_resize_weights_np(w, nw), device=img.device)
     out = torch.einsum("oh,...hwc->...owc", wy, img)
     return torch.einsum("pw,...owc->...opc", wx, out)
 
 
 def preprocess(img: torch.Tensor, size: int = 368,
-               letterbox: bool = False) -> torch.Tensor:
-    """Input pipeline: square resize → normalize. ``(..., H, W, 3)`` →
-    ``(..., size, size, 3)`` float32. The person is assumed centered."""
+               letterbox: bool = False, fill: float = 128.0) -> torch.Tensor:
+    """Input pipeline: resize (or letterbox) → normalize. ``(..., H, W,
+    3)`` → ``(..., size, size, 3)`` float32 NHWC memory.
+
+    ``letterbox=False`` resizes straight to the square, which distorts a
+    non-square input (the person is assumed centered). ``letterbox=True``
+    scales to fit, keeping the aspect, and pads the rest with ``fill``;
+    :func:`letterbox_affine` and :func:`joints_to_source_frame` map
+    decoded joints back to source pixels."""
     if letterbox:
-        raise NotImplementedError(
-            "letterbox preprocessing is not ported yet (ROADMAP.md A.10)")
+        return normalize_image(letterbox_image(img, size, fill=fill))
     return normalize_image(resize_image(img, size))
+
+
+# -- aspect-preserving letterbox (resize → pad) -----------------------------
+
+def _letterbox_geometry(h0: int, w0: int, size: int):
+    """(new_h, new_w, off_y, off_x) for scale-to-fit + centered pad, from
+    the static shapes."""
+    scale = size / max(h0, w0)
+    nh = max(1, min(size, round(h0 * scale)))
+    nw = max(1, min(size, round(w0 * scale)))
+    return nh, nw, (size - nh) // 2, (size - nw) // 2
+
+
+def letterbox_affine(h0: int, w0: int, size: int) -> np.ndarray:
+    """Affine mapping source pixels → network pixels for the letterbox,
+    ``net = src * scale + offset``, as ``[sx, sy, ox, oy]`` float32 on the
+    host. The offsets fold in the resize's half-pixel-center convention
+    (output pixel i samples input coordinate (i + 0.5)/s − 0.5), so image
+    content round-trips source → net → source to sub-pixel accuracy."""
+    nh, nw, off_y, off_x = _letterbox_geometry(h0, w0, size)
+    sx, sy = nw / w0, nh / h0
+    return np.array([sx, sy,
+                     off_x + 0.5 * sx - 0.5,
+                     off_y + 0.5 * sy - 0.5], np.float32)
+
+
+def letterbox_image(img: torch.Tensor, size: int,
+                    fill: float = 128.0) -> torch.Tensor:
+    """Aspect-preserving resize + centered constant pad: ``(..., H, W,
+    C)`` → ``(..., size, size, C)`` float32 in [0, 255], NHWC memory."""
+    h0, w0, c = img.shape[-3:]
+    nh, nw, off_y, off_x = _letterbox_geometry(h0, w0, size)
+    r = resize_image(img, (nh, nw))
+    if (nh, nw) == (size, size):
+        return r
+    out = torch.full((*img.shape[:-3], size, size, c), float(fill),
+                     dtype=torch.float32, device=img.device)
+    out[..., off_y:off_y + nh, off_x:off_x + nw, :] = r
+    return out
+
+
+def _affine_floats(affine):
+    return [float(v) for v in np.asarray(affine, np.float32)]
+
+
+def joints_to_source_frame(joints_net: torch.Tensor,
+                           affine) -> torch.Tensor:
+    """Map (..., P, 2) network-frame pixel joints back to source-image
+    pixels through a :func:`letterbox_affine` (inverse affine). The
+    affine's values enter as scalars: no host → device copy."""
+    sx, sy, ox, oy = _affine_floats(affine)
+    return torch.stack([(joints_net[..., 0] - ox) / sx,
+                        (joints_net[..., 1] - oy) / sy], dim=-1)
+
+
+def joints_to_network_frame(joints_src: torch.Tensor,
+                            affine) -> torch.Tensor:
+    """Map source-image pixel joints into the letterboxed network frame
+    (forward affine)."""
+    sx, sy, ox, oy = _affine_floats(affine)
+    return torch.stack([joints_src[..., 0] * sx + ox,
+                        joints_src[..., 1] * sy + oy], dim=-1)
 
 
 def gaussian_center_map(size: int = 368, sigma: float = 21.0,
@@ -82,6 +152,17 @@ def gaussian_center_map(size: int = 368, sigma: float = 21.0,
     xs = torch.arange(size, dtype=torch.float32, device=device)
     dy = (ys - center[1])[:, None]
     dx = (xs - center[0])[None, :]
+    g = torch.exp(-(dx * dx + dy * dy) / (2.0 * sigma * sigma))
+    return g[..., None]
+
+
+def gaussian_center_maps(size: int, sigma: float,
+                         centers: torch.Tensor) -> torch.Tensor:
+    """Per-image hints: ``centers`` (B, 2) (x, y) on the device →
+    (B, size, size, 1), each :func:`gaussian_center_map` at its center."""
+    grid = torch.arange(size, dtype=torch.float32, device=centers.device)
+    dy = (grid[None, :] - centers[:, 1:2])[:, :, None]
+    dx = (grid[None, :] - centers[:, 0:1])[:, None, :]
     g = torch.exp(-(dx * dx + dy * dy) / (2.0 * sigma * sigma))
     return g[..., None]
 

@@ -114,8 +114,8 @@ class FitConfig:
     # fit tier follow torch's float32 matmul setting; "highest" forces
     # full float32 (TF32 off) for the fit too.
     smpl_precision: str = "default"
-    # Video-fit constants (fitting/temporal.py in the JAX package; the
-    # video path is not ported yet, ROADMAP.md A.11).
+    # Video-fit weights (fitting/temporal.py): the smoothness terms, in
+    # the priors' scaled units, and the Viterbi yaw-selection weight.
     video_smooth_theta: float = 1000.0
     video_smooth_cam: float = 1000.0
     video_select_weight: float = 0.1
@@ -128,10 +128,8 @@ class FitConfig:
 @dataclasses.dataclass(frozen=True)
 class FrontEndConfig:
     """PoseEstimator front-end knobs in one hashable place (same fields
-    and defaults as the JAX package). The port has the defaults,
-    ``fit_restarts``, ``int8_min_batch`` and ``cpm_microbatch``; any other
-    non-default knob raises ``NotImplementedError`` in ``PoseEstimator``
-    (ROADMAP.md A.10)."""
+    and defaults as the JAX package; the semantics are those of
+    ``models/cpm.estimate_2d_from_images`` and ``api.PoseEstimator``)."""
     fit_restarts: int = 1
     refine_center: bool = False
     refine_scale: bool = False

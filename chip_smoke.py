@@ -47,7 +47,19 @@ port's dependencies (torch, numpy). It
    (``video_stream``); then holds the GPU front end and video paths
    against the CPU ones on a small float32 model
    (``front_end_small_reference``, ``video_small_reference``);
-9. prints a ``{"kernels": [...]}`` line and, last,
+9. drives the multi-person paths on frames of two planted people
+   (``two_people_frames``): ``estimate_and_fit_multi`` bf16 at batch 8
+   (``multi_main_path``), with letterbox, refine_scale and flip on
+   (8, 480, 640, 3) frames and three slots (``multi_front_end``), and int8
+   at batch 16 (``multi_int8``, B2 on the 32-hypothesis fold);
+   ``estimate_and_fit_video_multi`` at T = 64 with 4 yaw hypotheses
+   (``video_multi_main_path``) and with every knob at T = 32
+   (``video_multi_knobs``); the stream form against
+   ``MultiPersonVideoSession`` over 80 frames (``video_multi_stream``);
+   each with B1's (and B2's) launches against the computed counts; then
+   holds them against the CPU on a small float32 model
+   (``multi_small_reference``);
+10. prints a ``{"kernels": [...]}`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Every phase prints one JSON object per line. Any failed check raises, so
@@ -73,9 +85,10 @@ import torch.nn.functional as F
 from torch.autograd import DeviceType
 
 from tpu_pose_torch import api as api_lib
-from tpu_pose_torch.api import PoseEstimator, VideoSession
+from tpu_pose_torch.api import (MultiPersonVideoSession, PoseEstimator,
+                                VideoSession)
 from tpu_pose_torch.fitting import fit as fit_lib
-from tpu_pose_torch.fitting import temporal
+from tpu_pose_torch.fitting import temporal, tracking
 from tpu_pose_torch.models import cpm as cpm_lib
 from tpu_pose_torch.models import joints as joints_lib
 from tpu_pose_torch.models import smpl as smpl_lib
@@ -233,6 +246,7 @@ def read_counts() -> dict:
 
 
 TRUNK_POOLS = {"conv1": 0, "conv2": 1, "conv3": 2}  # pools before them
+REFINE_TRUNK = ("conv1_stage2", "conv2_stage2", "conv3_stage2")
 
 
 def conv_input_hw(cfg: CPMConfig) -> dict:
@@ -250,27 +264,47 @@ def conv_input_hw(cfg: CPMConfig) -> dict:
 
 
 def int8_launches(qcpm, cfg: CPMConfig, batch: int, dynamic: bool,
-                  stage1_runs: int = 1) -> dict:
+                  stage1_runs: int = 1, people: int = 1,
+                  crop: bool = False) -> dict:
     """B2's launches in one int8 CPM pass over ``batch`` frames: one
     quantize pass per 1×1 conv, one fused gather per tile of every k×k
-    conv (``ops/quantize._tiles``, as ``int8_conv`` cuts it), and with
-    dynamic scales one abs-max pass per conv. ``stage1_runs``: how often
-    the pass runs stage 1 (``refine_scale`` runs it once more per crop
-    round before the refinement stages)."""
+    conv (``ops/quantize._tiles`` at the batch the conv runs at, as
+    ``int8_conv`` cuts it), and with dynamic scales one abs-max pass per
+    conv. ``stage1_runs``: how often the pass runs stage 1
+    (``refine_scale`` runs it once more per crop round before the
+    refinement stages). ``people`` > 1: an ``estimate_2d_multi`` pass,
+    whose refinement stages run on the batch·people fold (stage 1 and the
+    refinement trunk at the batch); ``crop``: its crop pass, the whole
+    network once more at batch·people."""
     hw = conv_input_hw(cfg)
     count = {"quantize_act": 0, "quantize_im2col": 0,
              "quantize_act_absmax": 0}
     for name, layer in qcpm.named_children():
-        runs = stage1_runs if name.endswith("_stage1") else 1
-        count["quantize_act_absmax"] += int(dynamic) * runs
-        if layer.kernel_size == 1:
-            count["quantize_act"] += runs
-            continue
-        n_pad, k_pad = layer.w_int8.shape
-        h = hw[name]
-        count["quantize_im2col"] += runs * len(list(quantize_lib._tiles(
-            batch, h, h * (k_pad + 8 * n_pad))))
+        if name.endswith("_stage1"):
+            batches = [batch] * stage1_runs
+        elif name in REFINE_TRUNK:
+            batches = [batch]
+        else:
+            batches = [batch * people]
+        if crop:
+            batches.append(batch * people)
+        for b in batches:
+            count["quantize_act_absmax"] += int(dynamic)
+            if layer.kernel_size == 1:
+                count["quantize_act"] += 1
+                continue
+            n_pad, k_pad = layer.w_int8.shape
+            h = hw[name]
+            count["quantize_im2col"] += len(list(quantize_lib._tiles(
+                b, h, h * (k_pad + 8 * n_pad))))
     return count
+
+
+def multi_b1_launches(crop: bool, flip_tta: bool) -> int:
+    """B1's launches in one ``estimate_2d_multi`` call: the final decode
+    of the hypotheses, and one more with a crop pass (``refine_scale``, or
+    ``hint_crop`` with hints), all twice with ``flip_tta``."""
+    return (1 + int(crop)) * (2 if flip_tta else 1)
 
 
 def check_result(res, b: int) -> None:
@@ -1050,6 +1084,7 @@ FRONT_END_B1 = 2 * (1 + len(FRONT_END["scale_tta"])) * 2
 FRONT_END_CROPS = (1 + len(FRONT_END["scale_tta"])) * 2 \
     + len(FRONT_END["scale_tta"])
 VIDEO_T = 64                      # BASELINE.json configuration 4
+TEMPORAL_T = 32                   # temporal mode's frames (sequential fits)
 VIDEO_RESTARTS = 4
 STREAM_T, STREAM_CHUNK, STREAM_PUSH = 80, 32, 7
 
@@ -1068,6 +1103,39 @@ def _smooth_frames(t: int, h: int, w: int, seed: int) -> np.ndarray:
     bot = lo[:, y0 + 1][:, :, x0] * (1 - fx) + lo[:, y0 + 1][:, :, x0 + 1] * fx
     return np.clip(np.round(top * (1 - fy) + bot * fy), 0, 255).astype(
         np.uint8)
+
+
+# A stick figure's 14 joints in CPM order, (x, y) in units of its height
+# from its center.
+FIGURE = np.array([[0, -.45], [0, -.33], [-.12, -.3], [-.17, -.12],
+                   [-.2, .03], [.12, -.3], [.17, -.12], [.2, .03],
+                   [-.07, .05], [-.08, .27], [-.09, .48], [.07, .05],
+                   [.08, .27], [.09, .48]], np.float32)
+FIGURE_COLORS = np.array([[230, 40, 40], [40, 60, 230]], np.float32)
+
+
+def two_people_frames(t: int, h: int, w: int, seed: int,
+                      spread: float = 0.5) -> np.ndarray:
+    """uint8 (t, h, w, 3) frames of two people standing apart, ``spread``
+    of the width from each other around the middle, drifting half a pixel
+    per frame: each a stick figure 0.6·min(h, w) tall of 14 Gaussian
+    joint blobs in one color over the dimmed ``_smooth_frames`` field.
+    Smooth images, so that the random-weight network's peaks and crops are
+    well conditioned."""
+    img = 0.4 * _smooth_frames(t, h, w, seed).astype(np.float32)
+    gy, gx = np.mgrid[0:h, 0:w].astype(np.float32)
+    side = min(h, w)
+    sigma = 0.05 * side
+    for f in range(t):
+        for i, color in enumerate(FIGURE_COLORS):
+            center = (w * (0.5 + (i - 0.5) * spread) + (i - 0.5) * f,
+                      h * 0.5 + 0.3 * f)
+            j = FIGURE * 0.6 * side + center
+            d2 = ((gx[None] - j[:, :1, None]) ** 2
+                  + (gy[None] - j[:, 1:, None]) ** 2)
+            g = np.exp(-d2 / (2 * sigma * sigma)).max(0)[..., None]
+            img[f] = img[f] * (1 - g) + g * color
+    return np.clip(np.round(img), 0, 255).astype(np.uint8)
 
 
 def _timed_calls(fn, calls: int):
@@ -1185,10 +1253,10 @@ def phase_video_main_path(est: PoseEstimator, frames: np.ndarray) -> dict:
     return launches
 
 
-def _not_nhwc_conv_inputs(est: PoseEstimator, frames: np.ndarray) -> list:
-    """The int8 conv inputs of one front-end pass over ``frames`` that are
-    not NHWC memory (which B2's gather refuses and its other passes
-    would copy): ``_conv_q`` is wrapped for the one call."""
+def _not_nhwc_conv_inputs(est: PoseEstimator, call) -> list:
+    """The int8 conv inputs of ``call()`` (one front-end or multi pass of
+    ``est``) that are not NHWC memory, which B2's gather refuses and its
+    other passes would copy: ``_conv_q`` is wrapped for the call."""
     names = {id(m): n for n, m in est.cpm.named_children()}
     bad = []
     conv_q = cpm_lib._conv_q
@@ -1200,7 +1268,7 @@ def _not_nhwc_conv_inputs(est: PoseEstimator, frames: np.ndarray) -> list:
 
     cpm_lib._conv_q = tap
     try:
-        est._front_end(frames)
+        call()
     finally:
         cpm_lib._conv_q = conv_q
     return sorted(set(bad))
@@ -1227,7 +1295,8 @@ def phase_video_int8(est: PoseEstimator, frames: np.ndarray) -> dict:
     check_result(res, t)
     check(launches == want, f"int8 video launched {launches}, expected "
           f"{want}")
-    not_nhwc = _not_nhwc_conv_inputs(est, frames[:est.cpm_microbatch])
+    not_nhwc = _not_nhwc_conv_inputs(
+        est, lambda: est._front_end(frames[:est.cpm_microbatch]))
     emit({"phase": "video_int8", "frames": t, "chunks": chunks,
           "calls": calls, "launches": launches, "expected": want,
           "seconds_per_call": seconds,
@@ -1238,19 +1307,22 @@ def phase_video_int8(est: PoseEstimator, frames: np.ndarray) -> dict:
 
 
 def phase_video_modes(est: PoseEstimator, frames: np.ndarray) -> None:
-    """The temporal (warm-start) and independent modes, one call each."""
-    for mode in ("temporal", "independent"):
+    """The temporal (warm-start) and independent modes, one call each;
+    temporal mode, ≈ 20 sequential eager Adam steps per frame, on the
+    first ``TEMPORAL_T`` frames only."""
+    for mode, clip in (("temporal", frames[:TEMPORAL_T]),
+                       ("independent", frames)):
         zero_counts()
         t0 = time.perf_counter()
-        res = est.estimate_and_fit_video(frames, mode)
+        res = est.estimate_and_fit_video(clip, mode)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        check_result(res, frames.shape[0])
+        check_result(res, clip.shape[0])
         launches = read_counts()
         check(launches["soft_argmax"] == 1, f"{mode}: {launches}")
         emit({"phase": "video_modes", "mode": mode,
-              "frames": frames.shape[0], "seconds": seconds,
-              "frames_per_s": frames.shape[0] / seconds,
+              "frames": clip.shape[0], "seconds": seconds,
+              "frames_per_s": clip.shape[0] / seconds,
               "launches": launches})
 
 
@@ -1258,14 +1330,15 @@ def _fit_gap(a, b, model) -> dict:
     """θ (without the leaf joints' rotations, which only the prior moves
     and float noise steers; tests/test_torch_temporal.py), β and cam max
     differences, and joints3d MPJPE and mean vertex error in mm, of two
-    results on the same frames."""
+    results on the same frames (any leading axes)."""
     gap = {k: float((getattr(a, k).cpu()[..., ix]
                      - getattr(b, k).cpu()[..., ix]).abs().max())
            for k, ix in (("theta", DRIVEN_THETA), ("beta", slice(None)),
                          ("cam", slice(None)))}
     with torch.no_grad():
-        fa, fb = (smpl_lib.smpl_forward(model.to("cpu"), r.beta.cpu(),
-                                        r.theta.cpu(),
+        fa, fb = (smpl_lib.smpl_forward(model.to("cpu"),
+                                        r.beta.cpu().reshape(-1, 10),
+                                        r.theta.cpu().reshape(-1, 72),
                                         precision=smpl_lib.EXACT_PRECISION)
                   for r in (a, b))
     gap["joints3d_mpjpe_mm"] = 1000.0 * float(
@@ -1416,6 +1489,317 @@ def phase_video_small_reference() -> None:
             check(ok, f"GPU vs CPU video path, {name}")
 
 
+# -- multi-person frames and tracked video (ROADMAP A.12, A.13) --------------
+
+MULTI_PEOPLE = 2
+MULTI_FRONT_END = dict(letterbox=True, refine_scale=True, flip_tta=True)
+MULTI_FRONT_END_PEOPLE = 3
+VIDEO_MULTI_T, VIDEO_MULTI_KNOBS_T = 64, 32
+# Every knob of the tracked path: B1 runs once for the NMS pass, then per
+# hint pass once for the hinted decode and once for its hint-centered crop.
+VIDEO_MULTI_KNOBS = dict(hint_passes=2, hint_crop=True,
+                         hint_crop_min_conf=0.5, track_reassociate=True,
+                         allow_empty=True, track_death_frames=8,
+                         track_anchor_refresh=0.1, presence_keep_frac=0.7)
+
+
+def check_multi_result(res, b: int, k: int) -> None:
+    shapes = {"joints2d": (b, k, 14, 2), "conf": (b, k, 14),
+              "person_scores": (b, k), "person_mask": (b, k),
+              "theta": (b, k, 72), "beta": (b, k, 10), "cam": (b, k, 3),
+              "vertices": (b, k, 6890, 3), "joints3d": (b, k, 24, 3),
+              "energy": (b, k)}
+    for name, shape in shapes.items():
+        v = getattr(res, name)
+        check(tuple(v.shape) == shape, f"{name} shape {tuple(v.shape)}")
+        if name not in ("person_mask", "person_scores"):
+            check(bool(torch.isfinite(v).all()), f"{name} finite")
+    check(bool(res.person_mask.any(1).all()), "a person in every frame")
+
+
+def check_video_multi_result(res, t: int, k: int) -> None:
+    shapes = {"joints2d": (t, k, 14, 2), "conf": (t, k, 14),
+              "person_scores": (t, k), "frame_mask": (t, k),
+              "track_mask": (k,), "perm": (t, k), "theta": (k, t, 72),
+              "beta": (k, t, 10), "cam": (k, t, 3),
+              "vertices": (k, t, 6890, 3), "joints3d": (k, t, 24, 3),
+              "energy": (k, t)}
+    for name, shape in shapes.items():
+        v = getattr(res, name)
+        check(tuple(v.shape) == shape, f"{name} shape {tuple(v.shape)}")
+        if v.dtype.is_floating_point and name != "person_scores":
+            check(bool(torch.isfinite(v).all()), f"{name} finite")
+    check(torch.equal(res.perm.sort(1).values.cpu(),
+                      torch.arange(k, dtype=torch.int32).expand(t, k)),
+          "every perm row is a permutation")
+
+
+def phase_multi_main_path(est: PoseEstimator, images: np.ndarray,
+                          phase: str = "multi_main_path",
+                          people: int = MULTI_PEOPLE, crop: bool = False,
+                          flip_tta: bool = False) -> dict:
+    """estimate_and_fit_multi: one warm-up and three timed calls, launch
+    counts zeroed just before and read just after, B1 as
+    ``multi_b1_launches`` computes it and no B2 (bf16); people kept per
+    frame and peak memory."""
+    calls = 4
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    res, seconds = _timed_calls(
+        lambda: est.estimate_and_fit_multi(images, max_people=people),
+        calls)
+    launches = read_counts()
+    b = images.shape[0]
+    check_multi_result(res, b, people)
+    want = {"soft_argmax": multi_b1_launches(crop, flip_tta) * calls,
+            **B2_NONE}
+    check(launches == want, f"{phase} launched {launches}, expected {want}")
+    emit({"phase": phase, "batch": b, "frame_hw": list(images.shape[1:3]),
+          "max_people": people, "calls": calls, "launches": launches,
+          "b1_per_call": launches["soft_argmax"] // calls,
+          "seconds_per_call": seconds,
+          "frames_per_s": [b / x for x in seconds],
+          "people_kept_per_frame": res.person_mask.sum(1).tolist(),
+          "person_scores": res.person_scores.tolist(),
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return launches
+
+
+def phase_multi_int8(est: PoseEstimator, images: np.ndarray) -> dict:
+    """The int8 multi path at batch 16 (``quantize=True``, 8 calibration
+    frames): one warm-up and one timed call, counts zeroed before and read
+    after, held against the computed launches (stage 1 and the refinement
+    trunk at 16, the refinement stages on the 32-hypothesis fold, static
+    scales); no non-NHWC conv input; then the int8 and the bf16 CPM's
+    multi pass one after the other (int8, bf16, bf16, int8)."""
+    calls = 3
+    b, k = images.shape[0], MULTI_PEOPLE
+    per_call = int8_launches(est.cpm, est.cpm_cfg, b, False, people=k)
+    want = {"soft_argmax": calls,
+            **{name: n * calls for name, n in per_call.items()}}
+    zero_counts()
+    res, seconds = _timed_calls(
+        lambda: est.estimate_and_fit_multi(images, max_people=k), calls)
+    launches = read_counts()
+    check_multi_result(res, b, k)
+    check(launches == want, f"int8 multi launched {launches}, expected "
+          f"{want}")
+    not_nhwc = _not_nhwc_conv_inputs(
+        est, lambda: est._multi_2d(images, max_people=k))
+    times = {"int8": [], "bf16": []}
+    cpms = {"int8": est.cpm, "bf16": est.cpm_bf16}
+    for name in ("int8", "bf16", "bf16", "int8"):
+        times[name].append(host_s(lambda: est._multi_2d(
+            images, cpm=cpms[name], max_people=k)))
+    emit({"phase": "multi_int8", "batch": b, "max_people": k,
+          "calls": calls, "launches": launches, "expected": want,
+          "seconds_per_call": seconds,
+          "int8_multi_cpm_s": times["int8"], "bf16_multi_cpm_s": times["bf16"],
+          "int8_over_bf16": statistics.mean(times["int8"])
+          / statistics.mean(times["bf16"]),
+          "conv_inputs_not_nhwc": not_nhwc})
+    check(not_nhwc == [], f"int8 multi conv inputs not NHWC: {not_nhwc}")
+    return launches
+
+
+def phase_video_multi_main_path(est: PoseEstimator,
+                                frames: np.ndarray) -> dict:
+    """estimate_and_fit_video_multi over T = 64 frames, two people,
+    ``fit_restarts`` yaw hypotheses per frame and track (2·64·4 = 512
+    hypothesis fits), temporal hints: one warm-up and two timed calls,
+    counts zeroed before and read after (B1 twice per call: the NMS pass
+    and the hinted pass); then one multi pass, the tracker and the
+    per-track fit one at a time, and the device time by kernel of a pass
+    and the tracker under torch.profiler."""
+    calls = 3
+    t, k = frames.shape[0], MULTI_PEOPLE
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    res, seconds = _timed_calls(
+        lambda: est.estimate_and_fit_video_multi(frames, max_people=k),
+        calls)
+    launches = read_counts()
+    check_video_multi_result(res, t, k)
+    want = {"soft_argmax": 2 * calls, **B2_NONE}
+    check(launches == want, f"video multi launched {launches}, expected "
+          f"{want}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    out = {}
+    t_cpm = host_s(lambda: out.update(d=est._multi_2d(frames, max_people=k)))
+    _, joints, conf, scores = out["d"]
+    size = est.cpm_cfg.input_size
+
+    def tracker():
+        x = pre.preprocess(est._tensor(frames), size)
+        perm, _ = tracking.associate_tracks_viterbi(
+            joints.reshape(t, k, -1) / size,
+            tracking.appearance_features(x, joints), scores,
+            score_gate=0.05, return_state=True)
+        tj, ts = (tracking.gather_tracks(v, perm) for v in (joints, scores))
+        out["hints"] = tracking.smooth_track_centers(
+            tj.mean(-2), torch.clamp_min(ts, 0.0))
+
+    t_track = host_s(tracker)
+    t_fit = host_s(lambda: temporal.fit_video_smooth_tracks(
+        est.smpl_model, joints.transpose(0, 1), conf.transpose(0, 1),
+        est.fit_cfg, est.prior, restarts=est.fit_restarts))
+    total = 2 * t_cpm + t_track + t_fit
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        est._multi_2d(frames, max_people=k)
+        tracker()
+        torch.cuda.synchronize()
+    rows = kernel_rows(prof.key_averages())
+    emit({"phase": "video_multi_main_path", "frames": t, "max_people": k,
+          "restarts": est.fit_restarts, "calls": calls,
+          "launches": launches, "seconds_per_call": seconds,
+          "frames_per_s": [t / x for x in seconds],
+          "cpm_pass_s": t_cpm, "tracker_s": t_track, "fit_s": t_fit,
+          "cpm_share": 2 * t_cpm / total, "tracker_share": t_track / total,
+          "fit_share": t_fit / total,
+          "pass_and_tracker_device_s": (sum(r[2] for r in rows) / 1e6
+                                        if rows else "not measured"),
+          "pass_and_tracker_kernels": sum(r[1] for r in rows),
+          "pass_and_tracker_top": [
+              {"name": n[:80], "count": c, "device_ms": t / 1e3}
+              for n, c, t in rows[:8]],
+          "tracks_present": res.track_mask.tolist(),
+          "frames_present_per_track": res.frame_mask.sum(0).tolist(),
+          "peak_mem_gb": peak})
+    return launches
+
+
+def phase_video_multi_knobs(est: PoseEstimator, frames: np.ndarray) -> dict:
+    """estimate_and_fit_video_multi with every knob over T = 32 frames:
+    one call, counts zeroed before and read after; B1 five times (the NMS
+    pass, then two hint passes each with its hint-centered crop)."""
+    t, k = frames.shape[0], MULTI_PEOPLE
+    zero_counts()
+    t0 = time.perf_counter()
+    res = est.estimate_and_fit_video_multi(frames, max_people=k,
+                                           **VIDEO_MULTI_KNOBS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    check_video_multi_result(res, t, k)
+    passes = VIDEO_MULTI_KNOBS["hint_passes"]
+    want = {"soft_argmax": 1 + passes * multi_b1_launches(True, False),
+            **B2_NONE}
+    check(launches == want, f"video multi knobs launched {launches}, "
+          f"expected {want}")
+    emit({"phase": "video_multi_knobs", "frames": t, "max_people": k,
+          "knobs": VIDEO_MULTI_KNOBS, "launches": launches,
+          "seconds": seconds, "frames_per_s": t / seconds,
+          "frames_present_per_track": res.frame_mask.sum(0).tolist()})
+    return launches
+
+
+def phase_video_multi_stream(est: PoseEstimator, frames: np.ndarray) -> dict:
+    """estimate_and_fit_video_multi_stream(chunk=32) over 80 frames (two
+    full windows and one padded) and a MultiPersonVideoSession(chunk=32)
+    fed the same frames in pushes of 7, then flush(): the same windows and
+    carries, so identical perm and frame_mask, joints3d within 1 mm (the
+    fits' float sums on the card are not bitwise repeatable)."""
+    k = MULTI_PEOPLE
+    zero_counts()
+    t0 = time.perf_counter()
+    ref = est.estimate_and_fit_video_multi_stream(frames, max_people=k,
+                                                  chunk=STREAM_CHUNK)
+    torch.cuda.synchronize()
+    t_stream = time.perf_counter() - t0
+    launches = read_counts()
+    check_video_multi_result(ref, frames.shape[0], k)
+    session = MultiPersonVideoSession(est, max_people=k, chunk=STREAM_CHUNK)
+    outs, t0 = [], time.perf_counter()
+    for i in range(0, frames.shape[0], STREAM_PUSH):
+        r = session.push(frames[i:i + STREAM_PUSH])
+        if r is not None:
+            outs.append(r)
+    buffered = session.frames_buffered
+    outs.append(session.flush())
+    torch.cuda.synchronize()
+    t_session = time.perf_counter() - t0
+    got = api_lib._concat_video_multi(outs)
+    check_video_multi_result(got, frames.shape[0], k)
+    same_perm = torch.equal(got.perm, ref.perm)
+    same_mask = torch.equal(got.frame_mask, ref.frame_mask)
+    mpjpe_mm = 1000.0 * float(
+        (got.joints3d - ref.joints3d).norm(dim=-1).mean())
+    windows = -(-frames.shape[0] // STREAM_CHUNK)
+    ok = same_perm and same_mask and mpjpe_mm <= 1.0
+    emit({"phase": "video_multi_stream", "frames": frames.shape[0],
+          "chunk": STREAM_CHUNK, "push": STREAM_PUSH, "max_people": k,
+          "stream_s": t_stream, "session_s": t_session,
+          "stream_launches": launches, "windows": windows,
+          "buffered_before_flush": buffered, "same_perm": same_perm,
+          "same_frame_mask": same_mask, "joints3d_mpjpe_mm": mpjpe_mm,
+          "ok": ok})
+    check(launches["soft_argmax"] == 2 * windows,
+          f"stream launched {launches}")
+    check(buffered == frames.shape[0] % STREAM_CHUNK,
+          f"session buffered {buffered} frames before flush")
+    check(ok, "MultiPersonVideoSession vs the stream form")
+    return launches
+
+
+def phase_multi_small_reference() -> None:
+    """The GPU multi-person paths against the CPU ones (which
+    tests/test_torch_multiperson.py and tests/test_torch_tracking.py hold
+    against JAX) on the tests' small float32 model, TF32 off, within the
+    CPU tests' bounds: estimate_and_fit_multi and
+    estimate_and_fit_video_multi (T = 4), each with the defaults and with
+    every knob, on frames of two people: identical person masks, perms
+    and frame masks, joints2d 1e-2 px, θ (leaf rotations aside), β and cam
+    1e-3, joints3d and vertices 1 mm. The NMS radius is 32 px: the default
+    96 px covers a whole 64 px frame. On larger maps the random-weight
+    decode's flat maxima move the joints by ≈ 1e-2 px under 1e-6 relative
+    weight noise, which would test the noise's conditioning, not the
+    port."""
+    cpm_cfg, fit_cfg = _small_cfgs()
+    cases = {
+        "multi_defaults": ({}, dict(nms_radius_px=32.0)),
+        "multi_everything": (dict(MULTI_FRONT_END, fit_restarts=2),
+                             dict(max_people=3, nms_radius_px=24.0,
+                                  allow_empty=True, dup_joint_frac=0.5)),
+        "video_multi_defaults": (dict(fit_restarts=2),
+                                 dict(nms_radius_px=32.0)),
+        "video_multi_everything": (dict(fit_restarts=2),
+                                   dict(VIDEO_MULTI_KNOBS, nms_radius_px=32.0,
+                                        track_death_frames=2)),
+    }
+    images = two_people_frames(2, 72, 96, seed=3)
+    frames = two_people_frames(4, 64, 64, seed=3)
+    with NoTF32():
+        for name, (knobs, kw) in cases.items():
+            ests = {dev: PoseEstimator.create_synthetic(
+                0, cpm_cfg, fit_cfg, device=dev, **knobs)
+                for dev in ("cpu", DEVICE)}
+            before = cuda_kernels.soft_argmax_cuda.launches
+            if name.startswith("multi"):
+                want, got = (ests[d].estimate_and_fit_multi(images, **kw)
+                             for d in ("cpu", DEVICE))
+                masks = ("person_mask",)
+            else:
+                want, got = (ests[d].estimate_and_fit_video_multi(frames,
+                                                                  **kw)
+                             for d in ("cpu", DEVICE))
+                masks = ("perm", "frame_mask", "track_mask")
+            launched = cuda_kernels.soft_argmax_cuda.launches - before
+            same = all(torch.equal(getattr(got, m).cpu(), getattr(want, m))
+                       for m in masks)
+            j_err = float((got.joints2d.cpu() - want.joints2d).abs().max())
+            gap = _fit_gap(got, want, ests["cpu"].smpl_model)
+            ok = (same and j_err <= 1e-2
+                  and max(gap["theta"], gap["beta"], gap["cam"]) <= 1e-3
+                  and gap["joints3d_mpjpe_mm"] <= 1.0
+                  and gap["vertices_mean_mm"] <= 1.0 and launched > 0)
+            emit({"phase": "multi_small_reference", "case": name,
+                  "masks_equal": same, "max_abs_err_joints2d_px": j_err,
+                  **gap, "b1_launches": launched, "ok": ok})
+            check(ok, f"GPU vs CPU multi-person path, {name}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
@@ -1445,6 +1829,8 @@ def main() -> int:
     phase_plain_decode(est, images, res)
     phase_small_reference()
     phase_fit_recovery(est)
+    m_launches = phase_multi_main_path(
+        est, two_people_frames(MAIN_BATCH, size, size, seed=7))
 
     t0 = time.perf_counter()
     est8 = PoseEstimator.create_synthetic(
@@ -1466,6 +1852,8 @@ def main() -> int:
     phase_int8_small_batch(est8, images8[:MAIN_BATCH])
     phase_int8_breakdown(est8, images8[:INT8_CHUNK])
     phase_int8_small_reference()
+    mi_launches = phase_multi_int8(
+        est8, two_people_frames(INT8_CHUNK, size, size, seed=11))
 
     t0 = time.perf_counter()
     est_fe = PoseEstimator.create_synthetic(seed=0, cpm_cfg=MAIN_CPM,
@@ -1474,7 +1862,14 @@ def main() -> int:
     frames_fe = _frames(MAIN_BATCH, *FRONT_END_HW, seed=4)
     fe_launches = phase_front_end_main_path(est_fe, frames_fe)
     phase_front_end_breakdown(est_fe, frames_fe)
-    del est_fe
+    est_mfe = PoseEstimator(est_fe.cpm, est_fe.smpl_model, est_fe.prior,
+                            MAIN_CPM, est_fe.fit_cfg, device=DEVICE,
+                            **MULTI_FRONT_END)
+    mfe_launches = phase_multi_main_path(
+        est_mfe, two_people_frames(MAIN_BATCH, *FRONT_END_HW, seed=8),
+        "multi_front_end", MULTI_FRONT_END_PEOPLE, crop=True,
+        flip_tta=True)
+    del est_fe, est_mfe
 
     est_v = PoseEstimator.create_synthetic(seed=0, cpm_cfg=MAIN_CPM,
                                            device=DEVICE,
@@ -1483,6 +1878,12 @@ def main() -> int:
     v_launches = phase_video_main_path(est_v, video)
     phase_video_modes(est_v, video)
     phase_video_stream(est_v, _frames(STREAM_T, size, size, seed=6))
+    video_m = two_people_frames(VIDEO_MULTI_T, size, size, seed=9)
+    vm_launches = phase_video_multi_main_path(est_v, video_m)
+    vk_launches = phase_video_multi_knobs(est_v,
+                                          video_m[:VIDEO_MULTI_KNOBS_T])
+    vs_launches = phase_video_multi_stream(
+        est_v, two_people_frames(STREAM_T, size, size, seed=10))
     del est_v
 
     est8v = PoseEstimator.create_synthetic(
@@ -1494,6 +1895,7 @@ def main() -> int:
     del est8v
     phase_front_end_small_reference()
     phase_video_small_reference()
+    phase_multi_small_reference()
 
     q_row = q_timing[QUANT_KERNEL_ROW]
     g_row = g_timing[IM2COL_KERNEL_ROW]
@@ -1508,6 +1910,12 @@ def main() -> int:
         "launches_front_end_path": fe_launches["soft_argmax"],
         "launches_video_path": v_launches["soft_argmax"],
         "launches_video_int8_path": v8_launches["soft_argmax"],
+        "launches_multi_path": m_launches["soft_argmax"],
+        "launches_multi_front_end_path": mfe_launches["soft_argmax"],
+        "launches_multi_int8_path": mi_launches["soft_argmax"],
+        "launches_video_multi_path": vm_launches["soft_argmax"],
+        "launches_video_multi_knobs_path": vk_launches["soft_argmax"],
+        "launches_video_multi_stream_path": vs_launches["soft_argmax"],
         "max_abs_err": err["max_abs_err"],
         "ms": sa_row["ms"], "plain_ms": sa_row["plain_ms"],
         "bound_ms": sa_row["bound_ms"], "bound_by": sa_row["bound_by"],
@@ -1520,6 +1928,7 @@ def main() -> int:
         "replaces": "tpu_pose/ops/pallas_kernels.py:119",
         "launches": launches8["quantize_act"],
         "launches_video_int8_path": v8_launches["quantize_act"],
+        "launches_multi_int8_path": mi_launches["quantize_act"],
         "max_abs_err": q_err["max_abs_err"],
         "ms": q_row["ms"], "plain_ms": q_row["plain_ms"],
         "bound_ms": q_row["bound_ms"], "bound_by": q_row["bound_by"],
@@ -1532,6 +1941,7 @@ def main() -> int:
         "replaces": "tpu_pose/ops/pallas_kernels.py:119",
         "launches": launches8["quantize_im2col"],
         "launches_video_int8_path": v8_launches["quantize_im2col"],
+        "launches_multi_int8_path": mi_launches["quantize_im2col"],
         "max_abs_err": g_err["max_abs_err"],
         "ms": g_row["ms"], "plain_ms": g_row["plain_ms"],
         "bound_ms": g_row["bound_ms"], "bound_by": g_row["bound_by"],

@@ -133,3 +133,97 @@ def test_im2col_bound_counts_rows_written_and_input_read():
     write = 1 * 4 * 6 * 80                      # K 75 -> 80
     assert by == "bytes"
     assert bound == pytest.approx((read + write) / 3.35e12 * 1e3)
+
+
+# -- the multi-person paths' launch counts, against a counted CPU run -------
+
+KERNEL_WRAPPERS = {"soft_argmax": "soft_argmax_cuda",
+                   "quantize_act": "quantize_act_cuda",
+                   "quantize_act_absmax": "act_scale_cuda",
+                   "quantize_im2col": "quantize_im2col_cuda"}
+
+
+@pytest.fixture
+def counted(monkeypatch):
+    """Each kernel wrapper's calls, counted as the card counts its
+    launches: every call of a wrapper launches its kernel on a CUDA
+    tensor, except the abs-max pass, which a static scale skips and which
+    the quantize pass runs first with a dynamic scale. On the CPU the
+    wrappers run the plain versions and count nothing themselves."""
+    from tpu_pose_torch.ops import cuda_kernels
+    counts = dict.fromkeys(KERNEL_WRAPPERS, 0)
+    for key, name in KERNEL_WRAPPERS.items():
+        def wrapper(*args, _orig=getattr(cuda_kernels, name), _key=key,
+                    **kw):
+            a_scale = args[1] if len(args) > 1 else kw.get("a_scale")
+            if _key != "quantize_act_absmax" or a_scale is None:
+                counts[_key] += 1
+            if _key == "quantize_act" and a_scale is None:
+                counts["quantize_act_absmax"] += 1
+            return _orig(*args, **kw)
+        monkeypatch.setattr(cuda_kernels, name, wrapper)
+    return counts
+
+
+def _small_multi():
+    from tpu_pose_torch.models import cpm as cpm_lib
+    from tpu_pose_torch.utils.config import CPMConfig
+    cfg = CPMConfig(input_size=64, features=16, stage1_head_width=32,
+                    refine_width=16, num_stages=3, compute_dtype="float32")
+    return cfg, cpm_lib.init_cpm_params(0, cfg, device="cpu")
+
+
+MULTI_B1 = {"plain": dict(), "refine_scale": dict(refine_scale=True),
+            "flip": dict(flip_tta=True),
+            "refine_scale_flip": dict(refine_scale=True, flip_tta=True),
+            "hints": dict(hints=True),
+            "hint_crop": dict(hints=True, hint_crop=True),
+            "hint_crop_flip": dict(hints=True, hint_crop="all",
+                                   flip_tta=True),
+            "hint_crop_without_hints": dict(hint_crop=True)}
+
+
+@pytest.mark.parametrize("case", sorted(MULTI_B1))
+def test_multi_b1_launches_match_a_counted_run(counted, case):
+    """B1 per estimate_2d_multi call: the hypotheses' decode, one more with
+    a crop pass (refine_scale, or hint_crop with hints; hint_crop alone
+    does nothing), all twice with flip TTA."""
+    from tpu_pose_torch.models import cpm as cpm_lib
+    kw = dict(MULTI_B1[case])
+    cfg, cpm = _small_multi()
+    if kw.pop("hints", False):
+        kw["center_hints"] = torch.tensor([[[20.0, 30.0], [44.0, 30.0]]] * 2)
+    with torch.no_grad():
+        cpm_lib.estimate_2d_multi(cpm, torch.zeros(2, 64, 64, 3), cfg, **kw)
+    crop = bool(kw.get("refine_scale")) or (
+        bool(kw.get("hint_crop")) and "center_hints" in kw)
+    assert counted["soft_argmax"] == chip_smoke.multi_b1_launches(
+        crop, bool(kw.get("flip_tta")))
+
+
+@pytest.mark.parametrize("dynamic", [False, True])
+@pytest.mark.parametrize("people,crop", [(2, False), (3, False), (2, True)])
+def test_int8_launches_multi_match_a_counted_run(counted, monkeypatch,
+                                                 people, crop, dynamic):
+    """B2 per int8 estimate_2d_multi call, computed by int8_launches with
+    stage 1 and the refinement trunk at the batch, the refinement stages at
+    batch·people, and the crop pass's whole network at batch·people: equal
+    to the calls the wrappers count. A small tile budget splits the convs
+    into several tiles, whole images and runs of rows."""
+    from tpu_pose_torch.models import cpm as cpm_lib
+    from tpu_pose_torch.ops import quantize as quantize_lib
+    monkeypatch.setattr(quantize_lib, "TILE_BYTES", 10 ** 6)
+    cfg, cpm = _small_multi()
+    q = cpm_lib.quantize_params(cpm, None if dynamic else {
+        name: 0.05 for name, *_ in cpm_lib._layer_defs(cfg)})
+    frames = torch.from_numpy(chip_smoke.two_people_frames(2, 64, 64, 0))
+    with torch.no_grad():
+        cpm_lib.estimate_2d_multi(q, frames, cfg, max_people=people,
+                                  refine_scale=crop)
+    want = chip_smoke.int8_launches(q, cfg, 2, dynamic, people=people,
+                                    crop=crop)
+    assert {k: counted[k] for k in want} == want
+    monkeypatch.setattr(quantize_lib, "TILE_BYTES", 2 ** 40)
+    whole = chip_smoke.int8_launches(q, cfg, 2, dynamic, people=people,
+                                     crop=crop)
+    assert want["quantize_im2col"] > whole["quantize_im2col"]

@@ -428,3 +428,54 @@ def test_int8_conv_float_route_cuda_matches_cpu(cuda_device, monkeypatch,
         assert launched == ((tiles, 0) if dev != "cpu" else (0, 0))
     assert tiles > 3
     assert torch.equal(outs[0], outs[1].cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("people", [2, 3])
+def test_soft_argmax_on_the_multi_person_fold(cuda_device, people):
+    """The multi-person decode's input: heatmaps of the B·k hypothesis fold
+    (``repeat_interleave`` of NHWC memory, as ``models/cpm._fold`` builds
+    the refinement stages' inputs) and a slot-wise ``torch.where`` of two
+    such batches (the selective hint-centered crop): the kernel matches
+    the plain version, and repeated hypotheses decode identically."""
+    hm = _planted(8, 40 + people).contiguous().to(cuda_device)
+    folded = hm.repeat_interleave(people, dim=0)
+    other = _planted(8 * people, 50).contiguous().to(cuda_device)
+    pick = (torch.arange(8 * people, device=cuda_device) % 3) == 1
+    mixed = torch.where(pick[:, None, None, None], other, folded)
+    for x in (folded, mixed):
+        assert x.is_contiguous()
+        j_k, c_k = cuda_kernels.soft_argmax_cuda(x, beta=100.0, stride=8)
+        torch.cuda.synchronize()
+        j_p, c_p = softargmax.soft_argmax(x, beta=100.0, stride=8)
+        np.testing.assert_allclose(j_k.cpu().numpy(), j_p.cpu().numpy(),
+                                   **J_TOL)
+        np.testing.assert_allclose(c_k.cpu().numpy(), c_p.cpu().numpy(),
+                                   **C_TOL)
+    j_k, _ = cuda_kernels.soft_argmax_cuda(folded, beta=100.0, stride=8)
+    assert torch.equal(j_k[0::people], j_k[people - 1::people])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_im2col_on_the_folded_mconv1_input(cuda_device, dtype):
+    """The first refinement stage's Mconv1 input on the multi-person path:
+    the stage's features at B·k, the stage-1 beliefs folded from B
+    (``models/cpm._fold``) and per-hypothesis center hints, concatenated as
+    NHWC memory (``_cat_channels``). The gather reads it in place (unit
+    channel stride), bit for bit against its plain version on every tile
+    ``int8_conv`` cuts."""
+    b, k = 4, 2
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    feat = torch.randn(b * k, 46, 46, 32, generator=g, device=cuda_device)
+    b1 = torch.randn(b, 46, 46, 15, generator=g, device=cuda_device)
+    hint = torch.rand(b * k, 1, 46, 46, generator=g, device=cuda_device)
+    parts = [feat.to(dtype).permute(0, 3, 1, 2).float(),
+             cpm_lib._fold(b1.permute(0, 3, 1, 2), k), hint]
+    x = cpm_lib._cat_channels(parts).permute(0, 2, 3, 1)
+    assert x.is_contiguous() and x.shape == (b * k, 46, 46, 48)
+    scale = cuda_kernels.act_scale_cuda(x)
+    n_pad = 128
+    for tile in quantize._tiles(b * k, 46, 46 * (11 * 11 * 48 + 8 * n_pad)):
+        out_k, out_p = _im2col_pair(x, scale, 11, tile)
+        assert torch.equal(out_k, out_p), tile

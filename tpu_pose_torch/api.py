@@ -7,6 +7,10 @@
   (smooth, temporal or independent); ``estimate_and_fit_video_stream``
   — any length in anchored chunks; :class:`VideoSession` — the same,
   fed frames as they arrive.
+- ``estimate_and_fit_multi(images)`` — up to ``max_people`` people per
+  frame, each fitted; ``estimate_and_fit_video_multi(frames)`` — tracked
+  people in a video, one smooth fit per track; its stream form and
+  :class:`MultiPersonVideoSession`.
 
 ``PoseEstimator`` bundles the CPM, the SMPL model, the prior and the
 configs on one device. Inputs may be numpy arrays or tensors; outputs are
@@ -16,6 +20,7 @@ tensors on the estimator's device.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -23,7 +28,7 @@ import torch
 
 from tpu_pose_torch.fitting import fit as fit_lib
 from tpu_pose_torch.fitting import priors as priors_lib
-from tpu_pose_torch.fitting import temporal
+from tpu_pose_torch.fitting import temporal, tracking
 from tpu_pose_torch.fitting.fit import FitResult
 from tpu_pose_torch.models import cpm as cpm_lib
 from tpu_pose_torch.models import smpl as smpl_lib
@@ -38,6 +43,36 @@ class Estimate2DResult(NamedTuple):
     heatmaps: torch.Tensor   # (B, 46, 46, P+1)
     joints2d: torch.Tensor   # (B, P, 2) input-frame pixels
     conf: torch.Tensor       # (B, P)
+
+
+class MultiPersonResult(NamedTuple):
+    joints2d: torch.Tensor       # (B, K, P, 2)
+    conf: torch.Tensor           # (B, K, P)
+    person_scores: torch.Tensor  # (B, K) person evidence at each center
+    person_mask: torch.Tensor    # (B, K) bool: hypotheses judged people
+    theta: torch.Tensor          # (B, K, 72)
+    beta: torch.Tensor           # (B, K, 10)
+    cam: torch.Tensor            # (B, K, 3)
+    vertices: torch.Tensor       # (B, K, 6890, 3)
+    joints3d: torch.Tensor       # (B, K, 24, 3)
+    energy: torch.Tensor         # (B, K)
+
+
+class MultiPersonVideoResult(NamedTuple):
+    """Track-ordered multi-person video: index i on the track axis is the
+    same person (track i) in every frame."""
+    joints2d: torch.Tensor       # (T, K, P, 2) source-frame px
+    conf: torch.Tensor           # (T, K, P)
+    person_scores: torch.Tensor  # (T, K)
+    frame_mask: torch.Tensor     # (T, K) bool: track i present at frame t
+    track_mask: torch.Tensor     # (K,) bool: present in ≥ half the frames
+    perm: torch.Tensor           # (T, K) int32 slot of track i at frame t
+    theta: torch.Tensor          # (K, T, 72)
+    beta: torch.Tensor           # (K, T, 10)
+    cam: torch.Tensor            # (K, T, 3)
+    vertices: torch.Tensor       # (K, T, 6890, 3)
+    joints3d: torch.Tensor       # (K, T, 24, 3)
+    energy: torch.Tensor         # (K, T)
 
 
 class EstimateAndFitResult(NamedTuple):
@@ -163,6 +198,7 @@ class PoseEstimator:
         self.prior = None if prior is None else prior.to(self.device)
         self.cpm_cfg = cpm_cfg
         self.fit_cfg = fit_cfg
+        self._scale_tta_warned = False
 
     # -- constructors -----------------------------------------------------
 
@@ -316,18 +352,27 @@ class PoseEstimator:
         return pre.joints_to_source_frame(joints, pre.letterbox_affine(
             images.shape[1], images.shape[2], self.cpm_cfg.input_size))
 
+    def _mesh(self, res: FitResult):
+        """The final mesh of fitted (..., 72) θ and (..., 10) β at the
+        exact tier (full float32, TF32 off), leading axes kept."""
+        lead = res.theta.shape[:-1]
+        with torch.no_grad():
+            out = smpl_lib.smpl_forward(
+                self.smpl_model, res.beta.reshape(-1, res.beta.shape[-1]),
+                res.theta.reshape(-1, res.theta.shape[-1]),
+                precision=smpl_lib.EXACT_PRECISION)
+        return (out.vertices.reshape(*lead, *out.vertices.shape[1:]),
+                out.joints.reshape(*lead, *out.joints.shape[1:]))
+
     def _finish(self, joints, conf, res: FitResult, images
                 ) -> EstimateAndFitResult:
-        """The final mesh at the exact tier (full float32, TF32 off) and
-        the joints mapped to source pixels."""
-        with torch.no_grad():
-            out = smpl_lib.smpl_forward(self.smpl_model, res.beta,
-                                        res.theta,
-                                        precision=smpl_lib.EXACT_PRECISION)
+        """The final mesh at the exact tier and the joints mapped to
+        source pixels."""
+        vertices, joints3d = self._mesh(res)
         return EstimateAndFitResult(
             joints2d=self._to_source_frame(joints, images), conf=conf,
             theta=res.theta, beta=res.beta, cam=res.cam,
-            vertices=out.vertices, joints3d=out.joints, energy=res.energy)
+            vertices=vertices, joints3d=joints3d, energy=res.energy)
 
     def estimate_and_fit(self, images) -> EstimateAndFitResult:
         """The main path: raw image batch → 2D joints (the front end with
@@ -402,6 +447,301 @@ class PoseEstimator:
                       "cam": res.cam[-1]}
         return self._finish(joints, conf, res, frames), new_anchor
 
+    # -- multi-person -------------------------------------------------------
+
+    def _warn_multi_ignores_scale_tta(self) -> None:
+        """``scale_tta`` applies to the single-person front end only (the
+        multi-person paths normalize scale per hypothesis with
+        ``refine_scale``); say so once per estimator."""
+        if self.scale_tta and not self._scale_tta_warned:
+            warnings.warn(
+                "scale_tta is ignored by the multi-person paths (use "
+                "refine_scale for per-hypothesis scale normalization)",
+                stacklevel=3)
+            self._scale_tta_warned = True
+
+    def _multi_2d(self, frames, cpm=None, **kw):
+        """``models/cpm.estimate_2d_multi`` with this estimator's
+        letterbox, refine_scale and flip_tta (``kw`` adds the rest), by
+        the precision policy unless ``cpm`` is given, on the whole batch
+        at once: (heatmaps, joints in the network frame, conf,
+        person_scores)."""
+        if cpm is None:
+            cpm = self._params_for_batch(frames.shape[0])
+        with torch.no_grad():
+            return cpm_lib.estimate_2d_multi(
+                cpm, self._tensor(frames), self.cpm_cfg,
+                letterbox=self.letterbox, refine_scale=self.refine_scale,
+                flip_tta=self.flip_tta, **kw)
+
+    def estimate_and_fit_multi(self, images, max_people: int = 2,
+                               min_person_score: float = 0.05,
+                               person_score_frac: float = 0.4,
+                               dup_px: float = 30.0,
+                               allow_empty: bool = False,
+                               nms_radius_px: float = 96.0,
+                               dup_joint_frac: float = 0.0
+                               ) -> MultiPersonResult:
+        """Up to ``max_people`` people per frame: images (B, H, W, 3) →
+        ``estimate_2d_multi`` hypotheses (stage 1 once per image, the
+        refinement stages per hypothesis) → a fit of every one of the B·k
+        hypotheses (yaw multistart when ``fit_restarts`` > 1) → meshes at
+        the exact tier. ``person_mask`` is ``models/cpm.select_people``'s
+        call (thresholds ``min_person_score`` and ``person_score_frac``,
+        dedupe at ``dup_px``, ``dup_joint_frac``; the top hypothesis kept
+        unless ``allow_empty``). CPM precision follows the batch-size
+        policy; ``scale_tta`` is ignored (with a warning)."""
+        _check_frames(images)
+        self._warn_multi_ignores_scale_tta()
+        _, joints, conf, scores = self._multi_2d(
+            images, max_people=max_people, nms_radius_px=nms_radius_px)
+        mask = cpm_lib.select_people(scores, min_person_score,
+                                     person_score_frac, joints=joints,
+                                     dup_px=dup_px, allow_empty=allow_empty,
+                                     dup_joint_frac=dup_joint_frac)
+        b, k = joints.shape[:2]
+        flat_j = joints.reshape(b * k, *joints.shape[2:])
+        flat_c = conf.reshape(b * k, -1)
+        if self.fit_restarts > 1:
+            res = fit_lib.fit_smpl_multistart(
+                self.smpl_model, flat_j, flat_c, self.fit_cfg, self.prior,
+                restarts=self.fit_restarts)
+        else:
+            res = fit_lib.fit_smpl_batch(self.smpl_model, flat_j, flat_c,
+                                         self.fit_cfg, self.prior)
+        res = FitResult(*(f.reshape(b, k, *f.shape[1:]) for f in res))
+        vertices, joints3d = self._mesh(res)
+        return MultiPersonResult(
+            joints2d=self._to_source_frame(joints, images), conf=conf,
+            person_scores=scores, person_mask=mask, theta=res.theta,
+            beta=res.beta, cam=res.cam, vertices=vertices,
+            joints3d=joints3d, energy=res.energy)
+
+    def _video_multi(self, cpm, frames, max_people: int = 2,
+                     min_person_score: float = 0.05,
+                     person_score_frac: float = 0.4, dup_px: float = 30.0,
+                     temporal_hints: bool = True, hint_passes: int = 1,
+                     hint_crop: bool = False,
+                     hint_crop_min_conf: float = 0.0,
+                     track_reassociate: bool = False,
+                     allow_empty: bool = False,
+                     track_birth_cost: float = 0.05,
+                     track_death_frames: int = 0,
+                     track_anchor_refresh: float = 0.0,
+                     presence_keep_frac: float = 1.0,
+                     nms_radius_px: float = 96.0, pad_mask=None,
+                     track_state=None, anchors=None,
+                     return_carry: bool = False):
+        """The tracked multi-person pipeline on one sequence or window
+        (the JAX package's ``_estimate_and_fit_video_multi_impl``).
+        ``pad_mask`` (T,) 0 marks a window's pad frames: they score −1e9,
+        count as absent and carry no weight. ``track_state`` and
+        ``anchors`` continue a previous window; with ``return_carry`` the
+        result comes with the next window's (state, anchors)."""
+        frames = self._tensor(frames)
+        prev_presence = None
+        if anchors is not None and "presence" in anchors:
+            # The hysteresis carry rides the anchors but is no fit anchor.
+            anchors = dict(anchors)
+            prev_presence = anchors.pop("presence")
+
+        def decode(**kw):
+            return self._multi_2d(frames, cpm=cpm, max_people=max_people,
+                                  nms_radius_px=nms_radius_px, **kw)
+
+        def select(scores, joints, min_score, frac, allow):
+            return cpm_lib.select_people(
+                scores, min_score, frac, joints=joints, dup_px=dup_px,
+                allow_empty=allow, order_by_score=temporal_hints)
+
+        def unpad(x):
+            return x if live is None else torch.where(live, x, -1e9)
+
+        live = None if pad_mask is None else pad_mask[:, None] > 0
+        _, joints, conf, scores = decode()
+        t, k = scores.shape
+        size = self.cpm_cfg.input_size
+        xnet = pre.preprocess(frames, size, letterbox=self.letterbox)
+
+        def associate(j, s):
+            """Viterbi identities from size-normalized joints (geometry)
+            and the colors at the joints (appearance)."""
+            return tracking.associate_tracks_viterbi(
+                j.reshape(t, k, -1) / size,
+                tracking.appearance_features(xnet, j), s,
+                score_gate=min_person_score, birth_cost=track_birth_cost,
+                death_frames=track_death_frames,
+                anchor_refresh=track_anchor_refresh,
+                init_state=track_state, return_state=True)
+
+        perm, new_state = associate(joints, unpad(scores))
+        tj, tc, ts = (tracking.gather_tracks(x, perm)
+                      for x in (joints, conf, scores))
+        ts = unpad(ts)
+        sel_joints, sel_scores = joints, scores
+        if temporal_hints:
+            # Re-decode with each track's smoothed center as its slot's
+            # hint: slot i of the hinted pass is track i.
+            for _ in range(max(int(hint_passes), 1)):
+                w_hint = cpm_lib.select_people(
+                    ts, min_person_score, person_score_frac, joints=tj,
+                    dup_px=dup_px, allow_empty=True, order_by_score=True)
+                ctr = tj.mean(-2)                                 # (T, k, 2)
+                w_s = torch.clamp_min(ts, 0.0) * w_hint
+                if live is not None:
+                    # Pad frames observe the track's weighted mean center:
+                    # the smoother's weight floor would still tie them to
+                    # their raw (pad-content) centers.
+                    mean_ctr = ((ctr * w_s[..., None]).sum(0)
+                                / (w_s.sum(0)[:, None] + 1e-8))
+                    ctr = torch.where(live[..., None], ctr, mean_ctr[None])
+                hints = tracking.smooth_track_centers(ctr, w_s)
+                # hint_crop_dup_px is not passed: its default (30 px), as
+                # in the JAX package.
+                _, tj, tc, ts = decode(center_hints=hints,
+                                       hint_crop=hint_crop,
+                                       hint_crop_min_conf=hint_crop_min_conf)
+                ts = unpad(ts)
+            sel_joints, sel_scores = tj, ts
+            if track_reassociate:
+                # Associate again on the hinted decodes, from the same
+                # carried state; the next window chains on this pass.
+                perm2, new_state = associate(tj, ts)
+                tj, tc, ts = (tracking.gather_tracks(x, perm2)
+                              for x in (tj, tc, ts))
+                perm = tracking.compose_perms(perm, perm2)
+                sel_joints, sel_scores = tj, ts
+
+        def presence(min_score, frac, allow):
+            m = select(sel_scores, sel_joints, min_score, frac, allow)
+            if not temporal_hints:
+                m = tracking.gather_tracks(m, perm)
+            return m if live is None else m & live
+
+        fmask = presence(min_person_score, person_score_frac, allow_empty)
+        if presence_keep_frac < 1.0:
+            weak = presence(min_person_score * presence_keep_frac,
+                            person_score_frac * presence_keep_frac, True)
+            init = (prev_presence if prev_presence is not None else
+                    torch.zeros(k, dtype=torch.bool, device=fmask.device))
+            fmask = tracking.presence_hysteresis(fmask, weak, init)
+        track_mask = fmask.to(torch.float32).mean(0) >= 0.5
+
+        # One smooth fit per track, absent frames masked out; an all-absent
+        # track falls back to an all-ones mask (its fit is flagged by
+        # track_mask, and an all-masked sequence would give NaN).
+        fm = fmask.to(torch.float32).T                            # (k, T)
+        fm = torch.where((fm > 0).any(1, keepdim=True), fm,
+                         torch.ones_like(fm))
+        res = temporal.fit_video_smooth_tracks(
+            self.smpl_model, tj.transpose(0, 1), tc.transpose(0, 1),
+            self.fit_cfg, self.prior, restarts=max(self.fit_restarts, 1),
+            frame_mask=fm, anchor=anchors)
+        vertices, joints3d = self._mesh(res)
+        result = MultiPersonVideoResult(
+            joints2d=self._to_source_frame(tj, frames), conf=tc,
+            person_scores=ts, frame_mask=fmask, track_mask=track_mask,
+            perm=perm, theta=res.theta, beta=res.beta, cam=res.cam,
+            vertices=vertices, joints3d=joints3d, energy=res.energy)
+        if not return_carry:
+            return result
+        # The next window's carry: the tracker state and each track's
+        # last-frame solution (a window whose carry is used is full).
+        new_anchors = {"theta": res.theta[:, -1], "beta": res.beta[:, -1],
+                       "cam": res.cam[:, -1]}
+        if presence_keep_frac < 1.0:
+            new_anchors["presence"] = fmask[-1]
+        return result, new_state, new_anchors
+
+    def estimate_and_fit_video_multi(self, frames, max_people: int = 2,
+                                     min_person_score: float = 0.05,
+                                     person_score_frac: float = 0.4,
+                                     dup_px: float = 30.0,
+                                     temporal_hints: bool = True,
+                                     hint_passes: int = 1,
+                                     hint_crop: bool = False,
+                                     hint_crop_min_conf: float = 0.0,
+                                     track_reassociate: bool = False,
+                                     allow_empty: bool = False,
+                                     track_birth_cost: float = 0.05,
+                                     track_death_frames: int = 0,
+                                     track_anchor_refresh: float = 0.0,
+                                     presence_keep_frac: float = 1.0,
+                                     nms_radius_px: float = 96.0
+                                     ) -> MultiPersonVideoResult:
+        """Tracked multi-person video, frames (T, H, W, 3):
+
+        1. ``estimate_2d_multi`` on every frame (``max_people`` slots);
+        2. identities by ``fitting/tracking.associate_tracks_viterbi`` on
+           the slots' joints and appearance (track births at
+           ``track_birth_cost``, deaths after ``track_death_frames``
+           non-live frames, anchor refresh at ``track_anchor_refresh``);
+        3. with ``temporal_hints``, ``hint_passes`` rounds of smoothing
+           each track's centers and decoding again with them as the
+           slots' hints (``hint_crop``, ``hint_crop_min_conf``: the crop
+           pass centered on the hint); ``track_reassociate`` associates
+           again on the hinted decodes;
+        4. presence per frame by ``select_people`` (``allow_empty``;
+           ``presence_keep_frac`` < 1 adds hysteresis) and per track
+           (``track_mask``: present in half the frames or more);
+        5. one smooth sequence fit per track with its absent frames masked
+           (``fitting/temporal.fit_video_smooth_tracks``), max(
+           ``fit_restarts``, 1) yaw hypotheses per frame.
+
+        Axis 1 of the 2D fields and axis 0 of the fit fields are the
+        track; ``perm`` maps tracks to each frame's slots. CPM precision
+        follows the batch-size policy at T."""
+        _check_frames(frames, "frames")
+        self._warn_multi_ignores_scale_tta()
+        return self._video_multi(
+            None, frames, max_people=max_people,
+            min_person_score=min_person_score,
+            person_score_frac=person_score_frac, dup_px=dup_px,
+            temporal_hints=temporal_hints, hint_passes=hint_passes,
+            hint_crop=hint_crop, hint_crop_min_conf=hint_crop_min_conf,
+            track_reassociate=track_reassociate, allow_empty=allow_empty,
+            track_birth_cost=track_birth_cost,
+            track_death_frames=track_death_frames,
+            track_anchor_refresh=track_anchor_refresh,
+            presence_keep_frac=presence_keep_frac,
+            nms_radius_px=nms_radius_px)
+
+    def estimate_and_fit_video_multi_stream(
+            self, frames, max_people: int = 2, chunk: int = 64,
+            min_person_score: float = 0.05, person_score_frac: float = 0.4,
+            dup_px: float = 30.0, temporal_hints: bool = True,
+            hint_passes: int = 1, hint_crop: bool = False,
+            hint_crop_min_conf: float = 0.0,
+            track_reassociate: bool = False, allow_empty: bool = False,
+            track_birth_cost: float = 0.05, track_death_frames: int = 0,
+            track_anchor_refresh: float = 0.0,
+            presence_keep_frac: float = 1.0) -> MultiPersonVideoResult:
+        """Any-length tracked video in ``chunk``-frame windows (a
+        :class:`MultiPersonVideoSession` fed all frames, then flushed):
+        the tracker state and presence carry across windows, and each
+        track's fit is anchored to its previous window's last solution.
+        The last partial window is padded with zero frames, masked out.
+        Up to ``chunk`` frames run as one
+        :meth:`estimate_and_fit_video_multi` call."""
+        _check_frames(frames, "frames")
+        kw = dict(max_people=max_people, min_person_score=min_person_score,
+                  person_score_frac=person_score_frac, dup_px=dup_px,
+                  temporal_hints=temporal_hints, hint_passes=hint_passes,
+                  hint_crop=hint_crop,
+                  hint_crop_min_conf=hint_crop_min_conf,
+                  track_reassociate=track_reassociate,
+                  allow_empty=allow_empty,
+                  track_birth_cost=track_birth_cost,
+                  track_death_frames=track_death_frames,
+                  track_anchor_refresh=track_anchor_refresh,
+                  presence_keep_frac=presence_keep_frac)
+        if frames.shape[0] <= chunk:
+            return self.estimate_and_fit_video_multi(frames, **kw)
+        sess = MultiPersonVideoSession(self, chunk=chunk, **kw)
+        outs = [r for r in (sess.push(frames), sess.flush())
+                if r is not None]
+        return _concat_video_multi(outs)
+
 
 def _concat(outs) -> EstimateAndFitResult:
     if len(outs) == 1:
@@ -409,27 +749,41 @@ def _concat(outs) -> EstimateAndFitResult:
     return EstimateAndFitResult(*(torch.cat(fs) for fs in zip(*outs)))
 
 
-class VideoSession:
-    """Online single-person video: the incremental form of
-    :meth:`PoseEstimator.estimate_and_fit_video_stream` for frames that
-    arrive over time. Frames buffer on the estimator's device; each full
-    ``chunk``-frame window runs the 2D front end and the anchored smooth
-    fit, and its last solution anchors the next window (facing, boundary
-    smoothness and the shared β carry over). The CPM's precision is the
-    policy's at ``chunk`` frames.
+# MultiPersonVideoResult's fields by their time axis: 0 for the 2D fields,
+# 1 for the per-track fit fields.
+_VIDEO_MULTI_T_FIRST = ("joints2d", "conf", "person_scores", "frame_mask",
+                        "perm")
+_VIDEO_MULTI_K_FIRST = ("theta", "beta", "cam", "vertices", "joints3d",
+                        "energy")
 
-    ``push(frames)`` returns the results of the windows it completed, or
-    None. ``flush()`` runs the last partial window, padded with zero
-    images whose conf is zeroed and masked, and closes the session;
-    either call on a closed session raises ``RuntimeError``."""
 
-    def __init__(self, estimator: PoseEstimator, chunk: int = 64):
+def _concat_video_multi(outs) -> MultiPersonVideoResult:
+    """Windows' results joined along time (the track axis lines up by the
+    carried tracker state); ``track_mask`` is recomputed over them all."""
+    if len(outs) == 1:
+        return outs[0]
+    fields = {f: torch.cat([getattr(o, f) for o in outs], 0)
+              for f in _VIDEO_MULTI_T_FIRST}
+    fields.update({f: torch.cat([getattr(o, f) for o in outs], 1)
+                   for f in _VIDEO_MULTI_K_FIRST})
+    fields["track_mask"] = fields["frame_mask"].to(torch.float32).mean(0) \
+        >= 0.5
+    return MultiPersonVideoResult(**fields)
+
+
+class _WindowedSession:
+    """Frames pushed over time, buffered on the estimator's device and run
+    in ``chunk``-frame windows; the last partial window is padded with
+    zero frames (``pad_mask`` 0) at ``flush()``. The CPM's precision is
+    the policy's at ``chunk`` frames. Subclasses run a window
+    (``_run_window``) and join windows' results (``_join``)."""
+
+    def __init__(self, estimator: PoseEstimator, chunk: int):
         self._est = estimator
         self.chunk = int(chunk)
         self._cpm = estimator._params_for_batch(self.chunk)
         self._buf: list = []
         self._buffered = 0
-        self._anchor = None
         self._closed = False
 
     @property
@@ -437,23 +791,24 @@ class VideoSession:
         """Frames pushed but not yet run (fewer than ``chunk``)."""
         return self._buffered
 
-    def _run_window(self, win: torch.Tensor,
-                    n_real: int) -> EstimateAndFitResult:
+    def _padded(self, win: torch.Tensor, n_real: int):
+        """(the window padded to ``chunk`` frames with zeros, its
+        pad_mask)."""
         pad_mask = torch.ones(self.chunk, device=win.device)
         if n_real < self.chunk:
             win = torch.cat([win, win.new_zeros(
                 (self.chunk - n_real,) + win.shape[1:])])
             pad_mask[n_real:] = 0.0
-        res, self._anchor = self._est._video_window(
-            self._cpm, win, pad_mask, anchor=self._anchor)
-        return EstimateAndFitResult(*(f[:n_real] for f in res))
+        return win, pad_mask
 
     def _take(self) -> torch.Tensor:
         buf = torch.cat(self._buf) if len(self._buf) > 1 else self._buf[0]
         self._buf = []
         return buf
 
-    def push(self, frames) -> Optional[EstimateAndFitResult]:
+    def push(self, frames):
+        """Buffer ``frames`` (T, H, W, 3) or one frame (H, W, 3); return
+        the results of the windows this completed, or None."""
         if self._closed:
             raise RuntimeError("session already flushed")
         frames = self._est._tensor(frames)
@@ -470,9 +825,11 @@ class VideoSession:
                 self._buf = [rest]
             self._buffered -= self.chunk
             outs.append(self._run_window(win, self.chunk))
-        return _concat(outs) if outs else None
+        return self._join(outs) if outs else None
 
-    def flush(self) -> Optional[EstimateAndFitResult]:
+    def flush(self):
+        """Run the last partial window, if any, and close the session;
+        either call on a closed session raises ``RuntimeError``."""
         if self._closed:
             raise RuntimeError("session already flushed")
         self._closed = True
@@ -481,3 +838,82 @@ class VideoSession:
         buf = self._take()
         self._buffered = 0
         return self._run_window(buf, buf.shape[0])
+
+
+class VideoSession(_WindowedSession):
+    """Online single-person video: the incremental form of
+    :meth:`PoseEstimator.estimate_and_fit_video_stream` for frames that
+    arrive over time. Each full ``chunk``-frame window runs the 2D front
+    end and the anchored smooth fit, and its last solution anchors the
+    next window (facing, boundary smoothness and the shared β carry
+    over); pad frames' conf is zeroed and masked.
+
+    ``push(frames)`` returns the results of the windows it completed, or
+    None; ``flush()`` runs the last partial window and closes the
+    session."""
+
+    _join = staticmethod(_concat)
+
+    def __init__(self, estimator: PoseEstimator, chunk: int = 64):
+        super().__init__(estimator, chunk)
+        self._anchor = None
+
+    def _run_window(self, win: torch.Tensor,
+                    n_real: int) -> EstimateAndFitResult:
+        win, pad_mask = self._padded(win, n_real)
+        res, self._anchor = self._est._video_window(
+            self._cpm, win, pad_mask, anchor=self._anchor)
+        return EstimateAndFitResult(*(f[:n_real] for f in res))
+
+
+class MultiPersonVideoSession(_WindowedSession):
+    """Online tracked multi-person video: the incremental form of
+    :meth:`PoseEstimator.estimate_and_fit_video_multi_stream`, with the
+    same knobs. Each full ``chunk``-frame window runs the whole tracked
+    pipeline; the tracker state (committed identities, anchors, births
+    and deaths), the presence carry and each track's last solution carry
+    to the next window, so track i is the same person for the whole
+    session. Pad frames are masked out of the tracker, presence and fits.
+
+    ``push(frames)`` returns the results of the windows it completed
+    (``track_mask`` over those windows), or None; ``flush()`` runs the
+    last partial window and closes the session."""
+
+    _join = staticmethod(_concat_video_multi)
+
+    def __init__(self, estimator: PoseEstimator, max_people: int = 2,
+                 chunk: int = 64, min_person_score: float = 0.05,
+                 person_score_frac: float = 0.4, dup_px: float = 30.0,
+                 temporal_hints: bool = True, hint_passes: int = 1,
+                 hint_crop: bool = False, hint_crop_min_conf: float = 0.0,
+                 track_reassociate: bool = False, allow_empty: bool = False,
+                 track_birth_cost: float = 0.05,
+                 track_death_frames: int = 0,
+                 track_anchor_refresh: float = 0.0,
+                 presence_keep_frac: float = 1.0):
+        estimator._warn_multi_ignores_scale_tta()
+        super().__init__(estimator, chunk)
+        self._kw = dict(max_people=max_people,
+                        min_person_score=min_person_score,
+                        person_score_frac=person_score_frac, dup_px=dup_px,
+                        temporal_hints=temporal_hints,
+                        hint_passes=hint_passes, hint_crop=hint_crop,
+                        hint_crop_min_conf=hint_crop_min_conf,
+                        track_reassociate=track_reassociate,
+                        allow_empty=allow_empty,
+                        track_birth_cost=track_birth_cost,
+                        track_death_frames=track_death_frames,
+                        track_anchor_refresh=track_anchor_refresh,
+                        presence_keep_frac=presence_keep_frac)
+        self._state = None
+        self._anchors = None
+
+    def _run_window(self, win: torch.Tensor,
+                    n_real: int) -> MultiPersonVideoResult:
+        win, pad_mask = self._padded(win, n_real)
+        res, self._state, self._anchors = self._est._video_multi(
+            self._cpm, win, pad_mask=pad_mask, track_state=self._state,
+            anchors=self._anchors, return_carry=True, **self._kw)
+        return res._replace(
+            **{f: getattr(res, f)[:n_real] for f in _VIDEO_MULTI_T_FIRST},
+            **{f: getattr(res, f)[:, :n_real] for f in _VIDEO_MULTI_K_FIRST})

@@ -7,7 +7,9 @@
 - :func:`fit_video_smooth`: one joint whole-sequence optimization — per
   frame all yaw hypotheses of a multi-start fit, the consistent path
   through them (:func:`_viterbi_select`), then Adam over the whole
-  sequence with one shared β and temporal smoothness.
+  sequence with one shared β and temporal smoothness;
+  :func:`fit_video_smooth_tracks` fits several such sequences (the tracks
+  of a multi-person video) in one batch.
 - :func:`fit_video_stream`: :func:`fit_video_smooth` over fixed-size
   chunks, each anchored to the previous chunk's last solution.
 
@@ -85,34 +87,37 @@ def _viterbi_select(energy: torch.Tensor, glob: torch.Tensor,
                     frame_mask: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
     """Minimum-cost hypothesis path through the (frame × restart) lattice:
-    energy (T, R) as unary cost, ``weight``·‖Δ global orientation‖²
-    (glob (T, R, 3)) between consecutive frames' hypotheses. NaN energies
-    count as +inf. Frames with ``frame_mask`` 0 add no unary and no
-    transition cost (``where``, not a product: a diverged pad hypothesis
-    has e = inf, and inf·0 = NaN). ``anchor_glob`` (3,) adds a transition
-    from a virtual frame −1. Ties go to the first index, as ``jnp.argmin``.
-    Returns (T,) int32 selections, computed on the device."""
+    energy (..., T, R) as unary cost, ``weight``·‖Δ global orientation‖²
+    (glob (..., T, R, 3)) between consecutive frames' hypotheses, over
+    any leading (track) axes. NaN energies count as +inf. Frames with
+    ``frame_mask`` (..., T) 0 add no unary and no transition cost
+    (``where``, not a product: a diverged pad hypothesis has e = inf, and
+    inf·0 = NaN). ``anchor_glob`` (..., 3) adds a transition from a
+    virtual frame −1. Ties go to the first index, as ``jnp.argmin``.
+    Returns (..., T) int32 selections, computed on the device."""
     e = torch.where(torch.isnan(energy), math.inf, energy)
-    n = e.shape[0]
+    n = e.shape[-2]
     if frame_mask is not None:
-        e = torch.where(frame_mask[:, None] > 0, e, 0.0)
-        step_w = weight * frame_mask[1:] * frame_mask[:-1]
+        e = torch.where(frame_mask[..., None] > 0, e, 0.0)
+        step_w = weight * frame_mask[..., 1:] * frame_mask[..., :-1]
     else:
-        step_w = torch.full((n - 1,), weight, device=e.device)
+        step_w = torch.full(e.shape[:-2] + (n - 1,), weight, device=e.device)
+    cost = e[..., 0, :]
     if anchor_glob is not None:
-        e0 = e[0] + weight * ((glob[0] - anchor_glob[None, :]) ** 2).sum(-1)
-        e = torch.cat([e0[None], e[1:]])
-    cost, backs = e[0], []
+        cost = cost + weight * ((glob[..., 0, :, :]
+                                 - anchor_glob[..., None, :]) ** 2).sum(-1)
+    backs = []
     for t in range(1, n):
-        trans = ((glob[t][None, :, :] - glob[t - 1][:, None, :]) ** 2
-                 ).sum(-1)                                   # (R_prev, R)
-        tot = cost[:, None] + step_w[t - 1] * trans + e[t][None, :]
-        cost, arg = tot.min(dim=0)
-        backs.append(arg)
-    path = [cost.argmin().reshape(1)]
+        trans = ((glob[..., t, None, :, :] - glob[..., t - 1, :, None, :])
+                 ** 2).sum(-1)                           # (..., R_prev, R)
+        tot = (cost[..., :, None] + step_w[..., t - 1, None, None] * trans
+               + e[..., t, None, :])
+        backs.append(tot.argmin(dim=-2))
+        cost = tot.amin(dim=-2)
+    path = [cost.argmin(dim=-1, keepdim=True)]
     for bp in reversed(backs):
-        path.append(bp.index_select(0, path[-1]))
-    return torch.cat(path[::-1]).to(torch.int32)
+        path.append(bp.gather(-1, path[-1]))
+    return torch.cat(path[::-1], dim=-1).to(torch.int32)
 
 
 def fit_video_smooth(model: SMPLData, joints2d_seq: torch.Tensor,
@@ -143,69 +148,108 @@ def fit_video_smooth(model: SMPLData, joints2d_seq: torch.Tensor,
     selection costs and from the shared β's init. The weights default to
     ``cfg.video_select_weight`` / ``video_smooth_theta`` /
     ``video_smooth_cam``. ``beta`` comes back (T, 10) either way;
-    ``energy_history`` has shape (0,)."""
+    ``energy_history`` has shape (0,). One track of
+    :func:`fit_video_smooth_tracks`."""
+    res = fit_video_smooth_tracks(
+        model, joints2d_seq[None], conf_seq[None], cfg, prior,
+        restarts=restarts, select_weight=select_weight,
+        smooth_theta=smooth_theta, smooth_cam=smooth_cam,
+        shared_beta=shared_beta, iters=iters, lr=lr,
+        anchor=None if anchor is None else {k: v[None]
+                                            for k, v in anchor.items()},
+        frame_mask=None if frame_mask is None else frame_mask[None])
+    return FitResult(*(f[0] for f in res))
+
+
+def fit_video_smooth_tracks(model: SMPLData, joints2d: torch.Tensor,
+                            conf: torch.Tensor,
+                            cfg: FitConfig = FitConfig(),
+                            prior: Any = None, restarts: int = 4,
+                            select_weight: Optional[float] = None,
+                            smooth_theta: Optional[float] = None,
+                            smooth_cam: Optional[float] = None,
+                            shared_beta: bool = True, iters: int = 100,
+                            lr: float = 0.01,
+                            anchor: Optional[dict] = None,
+                            frame_mask: Optional[torch.Tensor] = None
+                            ) -> FitResult:
+    """:func:`fit_video_smooth` of K independent sequences at once (the
+    JAX package vmaps it over a multi-person video's tracks): joints2d
+    (K, T, P, 2), conf (K, T, P), ``anchor`` values and ``frame_mask``
+    with a leading K axis. One multistart batch of K·T·R fits, the Viterbi
+    selection batched over K, and one Adam loop on one flat vector of all
+    K sequences' parameters: the energies of the sequences are independent
+    and Adam is elementwise, so the gradient of their sum gives each
+    sequence its own updates. Results are (K, T, ...)."""
     check_ported(cfg)
     select_weight = (cfg.video_select_weight if select_weight is None
                      else select_weight)
     smooth_theta = (cfg.video_smooth_theta if smooth_theta is None
                     else smooth_theta)
     smooth_cam = cfg.video_smooth_cam if smooth_cam is None else smooth_cam
-    n = joints2d_seq.shape[0]
+    kt, n = joints2d.shape[:2]
+    flat_j = joints2d.reshape(kt * n, *joints2d.shape[2:])
+    flat_c = conf.reshape(kt * n, -1)
     if restarts > 1:
-        every = fit_smpl_multistart(model, joints2d_seq, conf_seq, cfg,
-                                    prior, restarts=restarts,
-                                    return_all=True)           # (T, R, ...)
+        every = fit_smpl_multistart(model, flat_j, flat_c, cfg, prior,
+                                    restarts=restarts, return_all=True)
+        every = FitResult(*(f.reshape(kt, n, *f.shape[1:])
+                            for f in every))                # (K, T, R, ...)
         sel = _viterbi_select(
             every.energy, every.theta[..., :3], select_weight,
-            anchor_glob=None if anchor is None else anchor["theta"][:3],
+            anchor_glob=None if anchor is None else anchor["theta"][:, :3],
             frame_mask=frame_mask).long()
-        rows = torch.arange(n, device=sel.device)
-        base = FitResult(*(f[rows, sel] for f in every))
+        tracks = torch.arange(kt, device=sel.device)[:, None]
+        rows = torch.arange(n, device=sel.device)[None, :]
+        base = FitResult(*(f[tracks, rows, sel] for f in every))
     else:
-        base = fit_video_independent(model, joints2d_seq, conf_seq, cfg,
-                                     prior)
+        base = fit_video_independent(model, flat_j, flat_c, cfg, prior)
+        base = FitResult(*(f.reshape(kt, n, *f.shape[1:]) for f in base))
 
     if anchor is not None and shared_beta:
         beta0 = anchor["beta"]
     elif shared_beta and frame_mask is not None:
         # Masked mean: pad frames' β hypotheses must not leak in.
         w = frame_mask.to(base.beta.dtype)
-        beta0 = (base.beta * w[:, None]).sum(0) / (w.sum() + 1e-8)
+        beta0 = ((base.beta * w[..., None]).sum(1)
+                 / (w.sum(1) + 1e-8)[:, None])
     else:
-        beta0 = base.beta.mean(0) if shared_beta else base.beta
-    obs = _normalize_obs(joints2d_seq, cfg)
+        beta0 = base.beta.mean(1) if shared_beta else base.beta
+    obs = _normalize_obs(flat_j, cfg)
     stage = cfg.stages[-1]
     scale = (2.0 / cfg.img_size) if cfg.normalize_obs else 1.0
     s2 = scale * scale
-    n_theta, n_beta = base.theta[0].numel(), beta0.numel()
+    n_theta, n_beta = base.theta.numel(), beta0.numel()
 
     def split(x):
-        theta = x[:n * n_theta].reshape(n, -1)
-        beta = x[n * n_theta:n * n_theta + n_beta].reshape(beta0.shape)
-        cam = x[n * n_theta + n_beta:].reshape(n, -1)
+        theta = x[:n_theta].reshape(kt, n, -1)
+        beta = x[n_theta:n_theta + n_beta].reshape(beta0.shape)
+        cam = x[n_theta + n_beta:].reshape(kt, n, -1)
         if shared_beta:
-            beta = beta.expand(n, -1)
+            beta = beta[:, None].expand(kt, n, -1)
         return {"theta": theta, "beta": beta, "cam": cam}
 
     def frame_energies(p):
-        e = fit_energy(p, model, obs, conf_seq, stage, cfg, prior)
+        e = fit_energy({k: v.reshape(kt * n, -1) for k, v in p.items()},
+                       model, obs, flat_c, stage, cfg, prior).reshape(kt, n)
         # where(), not a product: a NaN/inf pad energy times 0 is NaN.
         return e if frame_mask is None else torch.where(frame_mask > 0, e,
                                                         0.0)
 
-    step_mask = (torch.ones(n - 1, device=obs.device) if frame_mask is None
-                 else frame_mask[1:] * frame_mask[:-1])
+    step_mask = (torch.ones(kt, n - 1, device=obs.device)
+                 if frame_mask is None
+                 else frame_mask[:, 1:] * frame_mask[:, :-1])
 
     def total_energy(x):
         p = split(x)
-        dth = p["theta"][1:] - p["theta"][:-1]
-        dca = p["cam"][1:] - p["cam"][:-1]
+        dth = p["theta"][:, 1:] - p["theta"][:, :-1]
+        dca = p["cam"][:, 1:] - p["cam"][:, :-1]
         e = (frame_energies(p).sum()
              + smooth_theta * s2 * (step_mask * (dth * dth).sum(-1)).sum()
              + smooth_cam * s2 * (step_mask * (dca * dca).sum(-1)).sum())
         if anchor is not None:
-            dth0 = p["theta"][0] - anchor["theta"]
-            dca0 = p["cam"][0] - anchor["cam"]
+            dth0 = p["theta"][:, 0] - anchor["theta"]
+            dca0 = p["cam"][:, 0] - anchor["cam"]
             e = (e + smooth_theta * s2 * (dth0 * dth0).sum()
                  + smooth_cam * s2 * (dca0 * dca0).sum())
         return e
@@ -218,7 +262,7 @@ def fit_video_smooth(model: SMPLData, joints2d_seq: torch.Tensor,
         energy = frame_energies(p)
     return FitResult(theta=p["theta"], beta=p["beta"].contiguous(),
                      cam=p["cam"], energy=energy,
-                     energy_history=torch.zeros(0, device=x.device))
+                     energy_history=torch.zeros(kt, 0, device=x.device))
 
 
 def fit_video_stream(model: SMPLData, joints2d_seq: torch.Tensor,

@@ -22,10 +22,17 @@ The int8 serving path (``quantize_params``, ``calibrate_act_scales``,
 B2, ``csrc/quantize_act.cu``), int8 × int8 → int32
 (``ops/quantize.int8_conv``), float32 epilogue. Its activations are NCHW
 views of NHWC memory, the layout the gather reads.
+
+Multi-person frames (:func:`estimate_2d_multi`): stage 1 and the
+refinement trunk once per image, up to k person centers from NMS'd peaks
+of :func:`person_evidence` (or the caller's ``center_hints``), the
+refinement stages per hypothesis on the B·k fold, and
+:func:`select_people` for the person count.
 """
 
 from __future__ import annotations
 
+import math
 from typing import List
 
 import numpy as np
@@ -39,7 +46,8 @@ from tpu_pose_torch.ops import preprocess as pre
 from tpu_pose_torch.ops import quantize as quant_lib
 from tpu_pose_torch.ops import softargmax as decode_lib
 from tpu_pose_torch.utils.config import CPMConfig
-from tpu_pose_torch.utils.device import full_f32_matmul, resolve_device
+from tpu_pose_torch.utils.device import (full_f32_conv, full_f32_matmul,
+                                         resolve_device)
 
 
 def _layer_defs(cfg: CPMConfig):
@@ -792,3 +800,267 @@ def estimate_2d_microbatched(cpm, images: torch.Tensor,
     outs = [estimate_2d_from_images(cpm, images[i:i + chunk], cfg, **kw)
             for i in range(0, b_pad, chunk)]
     return tuple(torch.cat(parts)[:b] for parts in zip(*outs))
+
+
+# ---------------------------------------------------------------------------
+# Multi-person frames
+# ---------------------------------------------------------------------------
+
+def person_evidence(stage1_beliefs: torch.Tensor,
+                    cfg: CPMConfig = CPMConfig(),
+                    person_sigma_px: float = 64.0) -> torch.Tensor:
+    """Person-scale foreground evidence, stage-1 beliefs (B, h, h, P+1) →
+    (B, h, h): the part channels clipped at 0 and summed, then a separable
+    Gaussian of σ = ``person_sigma_px``/stride cells (radius 3σ, the kernel
+    normalized to sum 1) as two SAME convs with zero padding. A cluster of
+    joints integrates into one mode at the body center, a lone limb blob
+    stays weak. The convs run in full float32 (TF32 off): the peaks are
+    argmaxes over this map."""
+    fg = torch.clamp_min(stage1_beliefs[..., :-1], 0.0).sum(-1)
+    sigma = person_sigma_px / cfg.stride
+    r = max(1, int(3.0 * sigma))
+    xs = torch.arange(-r, r + 1, dtype=torch.float32, device=fg.device)
+    k1 = torch.exp(-0.5 * (xs / sigma) ** 2)
+    k1 = k1 / k1.sum()
+    x = fg[:, None]
+    with full_f32_conv():
+        x = F.conv2d(x, k1.view(1, 1, -1, 1), padding=(r, 0))
+        x = F.conv2d(x, k1.view(1, 1, 1, -1), padding=(0, r))
+    return x[:, 0]
+
+
+def find_person_peaks(fg: torch.Tensor, k: int, stride: int,
+                      nms_radius_px: float):
+    """Top-k peaks of a foreground map (B, h, w) with non-maximum
+    suppression: k rounds of argmax (the first maximum, as ``jnp.argmax``),
+    record, then set a disc of ``nms_radius_px`` around it to −inf.
+    Returns (centers_px (B, k, 2) as (x, y) = cell·stride, scores (B, k)),
+    all on the device."""
+    b, h, w = fg.shape
+    ys = torch.arange(h, dtype=torch.float32, device=fg.device)
+    xs = torch.arange(w, dtype=torch.float32, device=fg.device)
+    r_cells2 = (nms_radius_px / stride) ** 2
+    m = fg
+    centers, scores = [], []
+    for _ in range(k):
+        flat = m.reshape(b, h * w)
+        idx = flat.argmax(dim=-1)
+        scores.append(flat.gather(-1, idx[:, None])[:, 0])
+        cy = torch.div(idx, w, rounding_mode="floor").to(torch.float32)
+        cx = (idx % w).to(torch.float32)
+        centers.append(torch.stack([cx * stride, cy * stride], -1))
+        d2 = ((ys[None, :, None] - cy[:, None, None]) ** 2
+              + (xs[None, None, :] - cx[:, None, None]) ** 2)
+        m = torch.where(d2 <= r_cells2, -math.inf, m)
+    return torch.stack(centers, dim=1), torch.stack(scores, dim=1)
+
+
+def select_people(scores: torch.Tensor, min_score: float = 0.05,
+                  score_frac: float = 0.4,
+                  joints: torch.Tensor | None = None,
+                  dup_px: float = 30.0,
+                  allow_empty: bool = False,
+                  order_by_score: bool = False,
+                  dup_joint_frac: float = 0.0) -> torch.Tensor:
+    """Which of the k hypotheses per frame are people, scores (..., k) →
+    a (..., k) bool mask:
+
+    1. thresholds: a hypothesis clears ``min_score`` and ``score_frac`` of
+       the frame's best score; the top one is always kept unless
+       ``allow_empty``;
+    2. with ``joints`` (..., k, P, 2): a greedy pass in slot order drops j
+       when a kept i < j decodes within ``dup_px`` mean joint distance, or,
+       with ``dup_joint_frac`` > 0, when at least that fraction of j's
+       joints lie within ``dup_px`` of some joint of i.
+
+    ``order_by_score`` runs the greedy pass in per-frame descending score
+    order (a stable sort, as ``jnp.argsort``) and scatters the mask back
+    to the input slots."""
+    if order_by_score:
+        ordr = torch.argsort(-scores, dim=-1, stable=True)
+        inv = torch.argsort(ordr, dim=-1, stable=True)
+        s_s = scores.gather(-1, ordr)
+        j_s = None
+        if joints is not None:
+            idx = ordr[..., None, None].expand(*ordr.shape,
+                                               *joints.shape[-2:])
+            j_s = joints.gather(-3, idx)
+        m = select_people(s_s, min_score, score_frac, j_s, dup_px,
+                          allow_empty, dup_joint_frac=dup_joint_frac)
+        return m.gather(-1, inv)
+    top = scores.amax(dim=-1, keepdim=True)
+    keep = (scores >= min_score) & (scores >= score_frac * top)
+    if not allow_empty:
+        keep = keep | (scores >= top)
+    if joints is None:
+        return keep
+    k = scores.shape[-1]
+    # d[..., j, i]: mean distance between hypotheses j and i's joints.
+    d = torch.linalg.norm(joints[..., :, None, :, :]
+                          - joints[..., None, :, :, :], dim=-1).mean(-1)
+    is_dup = d < dup_px
+    if dup_joint_frac > 0:
+        # overlap[..., j, i]: share of j's joints within dup_px of some
+        # joint of i (nearest joint, not part-aligned).
+        d2 = torch.linalg.norm(joints[..., :, None, :, None, :]
+                               - joints[..., None, :, None, :, :], dim=-1)
+        overlap = (d2.amin(dim=-1) < dup_px).to(torch.float32).mean(-1)
+        is_dup = is_dup | (overlap >= dup_joint_frac)
+    kept_cols = [keep[..., 0:1]]
+    for j in range(1, k):
+        kept_sofar = torch.cat(kept_cols, dim=-1)
+        dup = (kept_sofar & is_dup[..., j, :j]).any(dim=-1)
+        kept_cols.append((keep[..., j] & ~dup)[..., None])
+    return torch.cat(kept_cols, dim=-1)
+
+
+def _fold(t: torch.Tensor, k: int) -> torch.Tensor:
+    """(B, C, H, W) → (B·k, C, H, W), each image repeated k times in a row
+    (``jnp.repeat(t, k, 0)``), as an NCHW view of NHWC memory: the int8
+    gather reads conv inputs in that layout only."""
+    return (t.permute(0, 2, 3, 1).repeat_interleave(k, dim=0).contiguous()
+            .permute(0, 3, 1, 2))
+
+
+def estimate_2d_multi(cpm, images: torch.Tensor,
+                      cfg: CPMConfig = CPMConfig(),
+                      max_people: int = 2,
+                      beta: float = 100.0,
+                      nms_radius_px: float = 96.0,
+                      person_sigma_px: float = 64.0,
+                      letterbox: bool = False,
+                      refine_scale: bool = False,
+                      scale_target_frac: float = 0.6,
+                      max_zoom: float = 3.0,
+                      flip_tta: bool = False,
+                      center_hints: torch.Tensor | None = None,
+                      hint_crop: bool | str = False,
+                      hint_crop_dup_px: float = 30.0,
+                      hint_crop_min_conf: float = 0.0):
+    """Multi-person 2D estimation. Raw images (B, H₀, W₀, 3) → heatmaps
+    (B, k, h, h, P+1), joints_px (B, k, P, 2) in the network frame, conf
+    (B, k, P), person_scores (B, k), with k = ``max_people``:
+
+    - stage 1 and the refinement trunk once per image; k person centers
+      from :func:`find_person_peaks` on :func:`person_evidence`, their
+      scores the peak values;
+    - ``center_hints`` (B, k, 2) network-frame (x, y) replace the peaks:
+      slot i decodes the person at hint i, scored by the evidence there
+      (bilinear, clamped at the edges, cell corners at x = col·stride);
+    - the refinement stages on the B·k fold, each hypothesis with a
+      Gaussian hint at its center, then one decode (kernel B1 on the
+      card);
+    - ``refine_scale``, or ``hint_crop`` with hints: geometry from each
+      hypothesis's decode (centered on its hint with ``hint_crop``), a
+      crop per hypothesis (:func:`_crop_zoom`) and the whole network again
+      on the crops, joints mapped back. ``hint_crop`` True or "dup" takes
+      the crop decode only for slots whose plain decode lies within
+      ``hint_crop_dup_px`` mean distance of a stronger slot's (and, with
+      ``hint_crop_min_conf`` > 0, whose crop decode's mean conf clears
+      that share of the frame's best plain slot); those slots' heatmaps
+      are then crop-frame maps among network-frame ones, as in the JAX
+      package. "all" takes every crop decode;
+    - ``flip_tta``: the whole pass again on the mirrored frame with the
+      mirrored centers in the same slots, merged slot by slot (conf-
+      weighted joints, mean conf); the heatmaps are the first pass's.
+
+    Raises ``ValueError`` unless ``cfg.use_center_map`` (the hint is what
+    tells the people apart)."""
+    if not cfg.use_center_map:
+        raise ValueError("estimate_2d_multi needs cfg.use_center_map=True "
+                         "(the center hint is what separates people)")
+    b, k, size = images.shape[0], max_people, cfg.input_size
+    x = pre.preprocess(images, size, letterbox=letterbox)
+    conv, dtype = _make_conv(cpm, cfg)
+    trunk1, b1 = _stage1_forward(conv, x.permute(0, 3, 1, 2))
+    fg = person_evidence(b1.permute(0, 2, 3, 1), cfg, person_sigma_px)
+    if center_hints is None:
+        centers, person_scores = find_person_peaks(fg, k, cfg.stride,
+                                                   nms_radius_px)
+    else:
+        centers = torch.as_tensor(center_hints, dtype=torch.float32,
+                                  device=x.device)
+        cells = centers / cfg.stride
+        person_scores = pre.map_coordinates_linear(
+            fg[..., None], cells[..., 1], cells[..., 0])[..., 0]
+
+    def centered_cmap_lo(n, device):
+        cm = pre.gaussian_center_map(size, cfg.center_sigma, device=device)
+        return pre.downsample_center_map(
+            cm.expand(n, *cm.shape), cfg.stride).permute(0, 3, 1, 2).to(dtype)
+
+    def run_multi(xn, centers_n, trunk1_n=None, b1_n=None):
+        """The per-hypothesis stages (and the crop pass) on one network-
+        frame NHWC batch with (B, k, 2) centers; joints (B·k) in xn's
+        frame."""
+        xc = xn.permute(0, 3, 1, 2)
+        if b1_n is None:
+            trunk1_n, b1_n = _stage1_forward(conv, xc)
+        f = _refine_trunk(conv, xc, trunk1_n, cfg)
+        cmaps = pre.gaussian_center_maps(size, cfg.center_sigma,
+                                         centers_n.reshape(b * k, 2))
+        cmap_lo = pre.downsample_center_map(cmaps, cfg.stride).permute(
+            0, 3, 1, 2).to(dtype)
+        b1_k = _fold(b1_n, k)
+        beliefs = _refine_stages(conv, dtype, _fold(f, k), b1_k, cmap_lo,
+                                 cfg.num_stages)
+        hm = (beliefs[-1] if beliefs else b1_k).permute(0, 2, 3, 1)
+        joints, conf = _decode(hm, cfg, beta)
+
+        do_hc = bool(hint_crop) and center_hints is not None
+        if not (refine_scale or do_hc):
+            return hm, joints, conf
+        g_centers, g_extent = person_geometry_from_joints(joints, conf)
+        if do_hc:
+            g_centers = centers_n.reshape(b * k, 2)
+        s, t = crop_affine_from_geometry(g_centers, g_extent, cfg,
+                                         target_frac=scale_target_frac,
+                                         max_zoom=max_zoom)
+        xz = _crop_zoom(xn.repeat_interleave(k, dim=0), s, t)
+        xzc = xz.permute(0, 3, 1, 2)
+        trunk1c, b1c = _stage1_forward(conv, xzc)
+        fc = _refine_trunk(conv, xzc, trunk1c, cfg)
+        beliefs2 = _refine_stages(conv, dtype, fc, b1c,
+                                  centered_cmap_lo(b * k, xn.device),
+                                  cfg.num_stages)
+        hm2 = (beliefs2[-1] if beliefs2 else b1c).permute(0, 2, 3, 1)
+        joints2, conf2 = _decode(hm2, cfg, beta)
+        joints2 = joints_from_crop_frame(joints2, s, t)
+        if not do_hc or hint_crop == "all":
+            return hm2, joints2, conf2
+        # Selective substitution: only slots whose plain decode duplicates
+        # a stronger slot's (ties to the lower index) take the crop decode.
+        jb = joints.reshape(b, k, -1, 2)
+        d = torch.linalg.norm(jb[:, :, None] - jb[:, None, :],
+                              dim=-1).mean(-1)                  # (B, k, k)
+        sc = person_scores
+        idx = torch.arange(k, device=sc.device)
+        stronger = ((sc[:, None, :] > sc[:, :, None])
+                    | ((sc[:, None, :] == sc[:, :, None])
+                       & (idx[None, None, :] < idx[None, :, None])))
+        dup = (stronger & (d < hint_crop_dup_px)).any(dim=-1)     # (B, k)
+        if hint_crop_min_conf > 0:
+            cm = conf2.reshape(b, k, -1).mean(-1)
+            pm = conf.reshape(b, k, -1).mean(-1)
+            ref = pm.amax(dim=-1, keepdim=True)
+            dup = dup & (cm >= hint_crop_min_conf * ref)
+        m = dup.reshape(b * k)
+        return (torch.where(m[:, None, None, None], hm2, hm),
+                torch.where(m[:, None, None], joints2, joints),
+                torch.where(m[:, None], conf2, conf))
+
+    hm, joints, conf = run_multi(x, centers, trunk1, b1)
+    if flip_tta:
+        centers_f = torch.stack([(size - 1.0) - centers[..., 0],
+                                 centers[..., 1]], dim=-1)
+        _, j_f, c_f = run_multi(x.flip(2), centers_f)
+        perm = joints_lib.cpm_flip_index(x.device)
+        j_f = torch.stack([(size - 1.0) - j_f[..., 0], j_f[..., 1]], dim=-1)
+        j_f, c_f = j_f.index_select(1, perm), c_f.index_select(1, perm)
+        w = conf + c_f + 1e-8
+        joints = (joints * conf[..., None] + j_f * c_f[..., None]) \
+            / w[..., None]
+        conf = 0.5 * (conf + c_f)
+    return (hm.reshape(b, k, *hm.shape[1:]),
+            joints.reshape(b, k, *joints.shape[1:]),
+            conf.reshape(b, k, *conf.shape[1:]), person_scores)

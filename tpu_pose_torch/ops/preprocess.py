@@ -1,6 +1,7 @@
 """Image preprocessing (port of ``tpu_pose/ops/preprocess.py``): resize
-or letterbox → x/256 − 0.5, the letterbox's frame maps, and the Gaussian
-person-center map with its 9×9/stride-8 average-pool downsample.
+or letterbox → x/256 − 0.5, the letterbox's frame maps, the Gaussian
+person-center map with its 9×9/stride-8 average-pool downsample, and the
+bilinear sampler of ``jax.scipy.ndimage.map_coordinates``.
 
 Images are NHWC, batched over a leading axis: ``(B, H, W, 3)``.
 """
@@ -62,7 +63,9 @@ def resize_image(img: torch.Tensor, size) -> torch.Tensor:
     wy = torch.as_tensor(_resize_weights_np(h, nh), device=img.device)
     wx = torch.as_tensor(_resize_weights_np(w, nw), device=img.device)
     out = torch.einsum("oh,...hwc->...owc", wy, img)
-    return torch.einsum("pw,...owc->...opc", wx, out)
+    # einsum leaves the axes permuted in memory; the CPM's convs (and the
+    # int8 path's gather) read NHWC memory.
+    return torch.einsum("pw,...owc->...opc", wx, out).contiguous()
 
 
 def preprocess(img: torch.Tensor, size: int = 368,
@@ -165,6 +168,34 @@ def gaussian_center_maps(size: int, sigma: float,
     dx = (grid[None, :] - centers[:, 0:1])[:, None, :]
     g = torch.exp(-(dx * dx + dy * dy) / (2.0 * sigma * sigma))
     return g[..., None]
+
+
+def map_coordinates_linear(img: torch.Tensor, ys: torch.Tensor,
+                           xs: torch.Tensor) -> torch.Tensor:
+    """``jax.scipy.ndimage.map_coordinates(order=1, mode="nearest")`` of
+    each channel, batched: ``img`` (N, H, W, C) sampled at (N, ...)
+    coordinates ``ys`` (rows), ``xs`` (cols) → (N, ..., C). JAX's
+    arithmetic in float32: floor each coordinate, weights (1 − f, f), tap
+    indices clamped to [0, n − 1], the four taps' (w_y·w_x)·value summed
+    in JAX's order."""
+    n, h, w, c = img.shape
+    flat = img.reshape(n, h * w, c)
+
+    def nodes(coord, size):
+        lo = torch.floor(coord)
+        upper = coord - lo
+        i = lo.to(torch.int64)
+        return [(i.clamp(0, size - 1), 1 - upper),
+                (torch.clamp(i + 1, 0, size - 1), upper)]
+
+    out = None
+    for (iy, wy) in nodes(ys, h):
+        for (ix, wx) in nodes(xs, w):
+            idx = (iy * w + ix).reshape(n, -1, 1).expand(-1, -1, c)
+            tap = flat.gather(1, idx).reshape(*ys.shape, c)
+            term = (wy * wx)[..., None] * tap
+            out = term if out is None else out + term
+    return out
 
 
 def same_padding(n: int, k: int, s: int) -> tuple[int, int]:

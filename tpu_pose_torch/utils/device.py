@@ -29,3 +29,15 @@ def full_f32_matmul():
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+@contextlib.contextmanager
+def full_f32_conv():
+    """Float32 convolutions in full precision (cuDNN's TF32 off) for the
+    duration, restoring the previous setting after."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev

@@ -59,7 +59,13 @@ port's dependencies (torch, numpy). It
    each with B1's (and B2's) launches against the computed counts; then
    holds them against the CPU on a small float32 model
    (``multi_small_reference``);
-10. prints a ``{"kernels": [...]}`` line and, last,
+10. drives the fit extras at full width (``fit_extras_main_path``: an
+   init head trained on the card, then ``estimate_and_fit`` with L-BFGS
+   stages, the interpenetration term and the head, batch 8, one B1
+   launch per call) and recovers known bodies with L-BFGS too
+   (``fit_recovery``); holds the capsules, the head and an L-BFGS fit on
+   the GPU against the CPU (``fit_extras_small_reference``);
+11. prints a ``{"kernels": [...]}`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Every phase prints one JSON object per line. Any failed check raises, so
@@ -88,10 +94,15 @@ from tpu_pose_torch import api as api_lib
 from tpu_pose_torch.api import (MultiPersonVideoSession, PoseEstimator,
                                 VideoSession)
 from tpu_pose_torch.fitting import fit as fit_lib
+from tpu_pose_torch.fitting import init_head as init_head_lib
+from tpu_pose_torch.fitting import interpenetration as interp_lib
+from tpu_pose_torch.fitting import lbfgs as lbfgs_lib
+from tpu_pose_torch.fitting import priors as priors_lib
 from tpu_pose_torch.fitting import temporal, tracking
 from tpu_pose_torch.models import cpm as cpm_lib
 from tpu_pose_torch.models import joints as joints_lib
 from tpu_pose_torch.models import smpl as smpl_lib
+from tpu_pose_torch.models import smpl_data as smpl_data_lib
 from tpu_pose_torch.ops import cuda_kernels
 from tpu_pose_torch.ops import preprocess as pre
 from tpu_pose_torch.ops import quantize as quantize_lib
@@ -1023,20 +1034,26 @@ def phase_small_reference() -> None:
 
 def phase_fit_recovery(est: PoseEstimator) -> None:
     """Project known bodies (θ*, β*) through a known camera and fit them
-    with ``fit_smpl``: the mean reprojection error must fall ≥100× from the
-    init. The priors are off here (their optimum is not the truth) and the
-    schedule is longer than the default, as in tests/test_fit.py's
-    recovery tests."""
+    with ``fit_smpl``, as tests/test_fit.py's recovery tests do. Adam
+    (priors off, a longer schedule than the default): the mean
+    reprojection error must fall ≥100× from the init. L-BFGS
+    (tests/test_fit.py:142's schedule: 20 + 60 steps, only a 0.1 shape
+    prior): it must end below 3 px, as there."""
     b = MAIN_BATCH
     off = dict(w_pose_prior=0.0, w_shape_prior=0.0, w_angle_prior=0.0)
-    cfg = FitConfig(stages=(
-        StageConfig(iters=60, lr=0.05, opt_pose=False, opt_shape=False,
-                    **off),
-        StageConfig(iters=300, lr=0.02, **off),
-        StageConfig(iters=300, lr=0.005, **off),
-        StageConfig(iters=200, lr=0.001, **off)))
-    fitter = PoseEstimator(est.cpm, est.smpl_model, None, est.cpm_cfg, cfg,
-                           device=DEVICE)
+    cases = {
+        "adam": (FitConfig(stages=(
+            StageConfig(iters=60, lr=0.05, opt_pose=False, opt_shape=False,
+                        **off),
+            StageConfig(iters=300, lr=0.02, **off),
+            StageConfig(iters=300, lr=0.005, **off),
+            StageConfig(iters=200, lr=0.001, **off))),
+            lambda e0, e1: e1 * 100.0 <= e0),
+        "lbfgs": (FitConfig(optimizer="lbfgs", stages=(
+            StageConfig(iters=20, lr=0.0, opt_pose=False, opt_shape=False,
+                        **off),
+            StageConfig(iters=60, lr=0.0, **dict(off, w_shape_prior=0.1)))),
+            lambda e0, e1: e1 < 3.0)}
     model = est.smpl_model
     rng = np.random.RandomState(3)
     theta = torch.from_numpy((0.2 * rng.randn(b, 72)).astype(np.float32))
@@ -1046,29 +1063,33 @@ def phase_fit_recovery(est: PoseEstimator) -> None:
         j3d = joints_lib.select_smpl_joints(smpl_lib.smpl_joints(
             model, beta.to(DEVICE), theta.to(DEVICE)))
         norm = j3d[..., :2] * cam[:, None, :1] + cam[:, None, 1:]
-    half = cfg.img_size / 2.0
-    px = norm * half + half
-    conf = torch.ones(b, 14, device=DEVICE)
+    for name, (cfg, passes) in cases.items():
+        fitter = PoseEstimator(est.cpm, model, None, est.cpm_cfg, cfg,
+                               device=DEVICE)
+        half = cfg.img_size / 2.0
+        px = norm * half + half
+        conf = torch.ones(b, 14, device=DEVICE)
 
-    def reproj_px(theta, beta, cam):
-        r = fit_lib.FitResult(theta, beta, cam, None, None)
-        with torch.no_grad():
-            pred = fit_lib.reproject(model, r, cfg)
-        return float(((pred - norm) * half).norm(dim=-1).mean())
+        def reproj_px(theta, beta, cam, cfg=cfg, half=half):
+            r = fit_lib.FitResult(theta, beta, cam, None, None)
+            with torch.no_grad():
+                pred = fit_lib.reproject(model, r, cfg)
+            return float(((pred - norm) * half).norm(dim=-1).mean())
 
-    init = fit_lib.default_init(model, norm, conf, cfg)
-    t0 = time.perf_counter()
-    res = fitter.fit_smpl(px, conf)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    e0 = reproj_px(init["theta"], init["beta"], init["cam"])
-    e1 = reproj_px(res.theta, res.beta, res.cam)
-    ok = e1 * 100.0 <= e0
-    emit({"phase": "fit_recovery", "batch": b,
-          "steps": sum(s.iters for s in cfg.stages), "seconds": seconds,
-          "init_reproj_px": e0, "final_reproj_px": e1,
-          "ratio": e0 / max(e1, 1e-12), "ok": ok})
-    check(ok, f"fit recovery: reprojection {e0} px -> {e1} px")
+        init = fit_lib.default_init(model, norm, conf, cfg)
+        t0 = time.perf_counter()
+        res = fitter.fit_smpl(px, conf)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        e0 = reproj_px(init["theta"], init["beta"], init["cam"])
+        e1 = reproj_px(res.theta, res.beta, res.cam)
+        ok = passes(e0, e1)
+        emit({"phase": "fit_recovery", "optimizer": name, "batch": b,
+              "steps": sum(s.iters for s in cfg.stages),
+              "seconds": seconds, "init_reproj_px": e0,
+              "final_reproj_px": e1, "ratio": e0 / max(e1, 1e-12),
+              "ok": ok})
+        check(ok, f"fit recovery ({name}): reprojection {e0} px -> {e1} px")
 
 
 # -- the accuracy front end and video (ROADMAP A.10, A.11) --------------------
@@ -1800,6 +1821,223 @@ def phase_multi_small_reference() -> None:
             check(ok, f"GPU vs CPU multi-person path, {name}")
 
 
+# -- the fit extras (ROADMAP A.14) ------------------------------------------
+
+# The init head is trained on the card at train_init_head's default width
+# (hidden 256, depth 3) for 300 steps at batch 256, cut from its default
+# 2000 steps to stay within half a minute.
+HEAD_STEPS, HEAD_BATCH = 300, 256
+W_INTERPENETRATION = 5e3          # tests/test_interpenetration.py's weight
+
+
+def extras_fit_cfg() -> FitConfig:
+    """The default schedule as L-BFGS stages, with the interpenetration
+    term on the stages that optimize the body pose."""
+    return FitConfig(optimizer="lbfgs", stages=tuple(
+        dataclasses.replace(s, w_interpenetration=W_INTERPENETRATION)
+        if s.opt_pose else s for s in FitConfig().stages))
+
+
+def phase_fit_extras_main_path(est: PoseEstimator,
+                               images: np.ndarray) -> dict:
+    """The fit extras at the default model's full width: a learned init
+    head trained here (``train_init_head``), then ``estimate_and_fit``
+    with L-BFGS stages, the interpenetration term and the head: one
+    warm-up and two timed calls, with the launch and L-BFGS counts zeroed
+    just before and read just after; then the fit alone, for its share."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    head, losses = init_head_lib.train_init_head(
+        est.smpl_model, steps=HEAD_STEPS, batch=HEAD_BATCH, seed=0)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    cfg = extras_fit_cfg()
+    ext = PoseEstimator(est.cpm, est.smpl_model, est.prior, est.cpm_cfg,
+                        cfg, init_head=head, device=DEVICE)
+    calls = 3
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    lbfgs_lib.reset_counts()
+    res, seconds = _timed_calls(lambda: ext.estimate_and_fit(images), calls)
+    launches = read_counts()
+    counts = dict(lbfgs_lib.COUNTS)
+    b = images.shape[0]
+    check_result(res, b)
+    check(launches["soft_argmax"] == calls,
+          f"fit_extras_main_path: B1 launched {launches['soft_argmax']} "
+          f"times in {calls} calls")
+    check({k: launches[k] for k in B2_NONE} == B2_NONE,
+          f"fit_extras_main_path: B2 launched {launches}")
+    with torch.no_grad():
+        _, joints, conf = ext._front_end(images)
+        init = ext._head_init(joints, conf)
+    fit_s = host_s(lambda: fit_lib.fit_smpl_batch(
+        est.smpl_model, joints, conf, cfg, est.prior, init))
+    steps = sum(s.iters for s in cfg.stages)
+    first, last = float(losses[:10].mean()), float(losses[-10:].mean())
+    emit({"phase": "fit_extras_main_path", "batch": b, "calls": calls,
+          "launches": launches, "seconds_per_call": seconds,
+          "frames_per_s": [b / s for s in seconds], "fit_s": fit_s,
+          "fit_share": fit_s / statistics.median(seconds),
+          "lbfgs_steps_per_call": steps,
+          "linesearch_evaluations_per_step_mean":
+              counts["evaluations"] / counts["steps"],
+          "linesearch_evaluations_per_step_max":
+              counts["max_step_evaluations"],
+          "linesearch_iterations_per_step":
+              counts["host_reads"] / (calls * steps),
+          "host_reads_per_call": counts["host_reads"] / calls,
+          "b1_launches_per_call": launches["soft_argmax"] / calls,
+          "w_interpenetration": W_INTERPENETRATION,
+          "head_train_s": train_s, "head_steps": HEAD_STEPS,
+          "head_batch": HEAD_BATCH, "head_loss_first10": first,
+          "head_loss_last10": last,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    check(last < first, f"init head training: loss {first} -> {last}")
+    return launches
+
+
+def _clean_fit_observations(model, seeds, img: int):
+    """Pixel joints of known bodies, one per seed (θ 0.25σ, β 0.3σ, drawn
+    as tests/test_fit.py's make_observation draws them) under its fixed
+    weak-perspective camera, confidence 1, on ``model``'s device."""
+    draws = [np.random.RandomState(s) for s in seeds]
+    draws = [(r.randn(72) * 0.25, r.randn(10) * 0.3) for r in draws]
+    theta = torch.from_numpy(np.float32([t for t, _ in draws]))
+    beta = torch.from_numpy(np.float32([b for _, b in draws]))
+    b = len(seeds)
+    dev = model.device
+    with torch.no_grad():
+        j3d = joints_lib.select_smpl_joints(smpl_lib.smpl_joints(
+            model, beta.to(dev), theta.to(dev), smpl_lib.EXACT_PRECISION))
+    px = (j3d[..., :2] * 0.9 + torch.tensor([0.05, -0.1], device=dev)
+          + 1.0) * (img / 2.0)
+    return px, torch.ones(b, 14, device=dev)
+
+
+def phase_fit_extras_small_reference() -> None:
+    """The fit extras on the GPU against the CPU (which
+    tests/test_torch_interpenetration.py, test_torch_init_head.py and
+    test_torch_lbfgs.py hold against JAX), TF32 off, within the CPU
+    tests' bounds: the capsule spec (radii 1e-6, thresholds 2e-6) and the
+    penalty with its gradient on the CPU spec's geometry (1e-5); a head's
+    predictions (1e-5) and its training loss with the gradient (1e-4
+    relative) on one batch; an
+    L-BFGS fit with the interpenetration term on clean observations
+    (tests/test_torch_lbfgs.py's 10 + 10-step schedule; joints3d ≤ 1 mm,
+    and the first step where the two energy traces part by more than
+    1e-4 relative); estimate_and_fit with the head on the small float32
+    model (joints2d 1e-2 px; θ without the leaf rotations, β, cam 1e-3;
+    joints3d and vertices 1 mm)."""
+    devs = ("cpu", DEVICE)
+    with NoTF32():
+        models = {d: smpl_data_lib.synthetic_smpl(seed=0, device=d)
+                  for d in devs}
+        specs = {d: interp_lib.build_capsule_spec(models[d]) for d in devs}
+        errs = {k: float((getattr(specs[DEVICE], k).cpu()
+                          - getattr(specs["cpu"], k)).abs().max())
+                for k in ("radius", "threshold")}
+        rng = np.random.RandomState(0)
+        j = torch.from_numpy(np.float32(
+            models["cpu"].joint_basis[0].numpy()[None]
+            + 0.1 * rng.randn(5, 24, 3)))
+        # The penalty on one geometry (the CPU spec's): at deep overlaps it
+        # moves by Σ 2·overlap·Δthreshold, the spec's rounding.
+        same = dataclasses.replace(
+            specs[DEVICE], radius=specs["cpu"].radius.to(DEVICE),
+            threshold=specs["cpu"].threshold.to(DEVICE))
+        pen = {}
+        for d, spec in (("cpu", specs["cpu"]), (DEVICE, same)):
+            x = j.to(d).requires_grad_(True)
+            p = interp_lib.interpenetration_penalty(x, spec)
+            pen[d] = (p.detach().cpu(), torch.autograd.grad(p.sum(), x)[0]
+                      .cpu())
+        ok_p = [close(pen[DEVICE][i], pen["cpu"][i], 1e-5, 1e-5)
+                for i in (0, 1)]
+        ok = (errs["radius"] <= 1e-6 and errs["threshold"] <= 2e-6
+              and all(o for o, _ in ok_p))
+        emit({"phase": "fit_extras_small_reference", "case": "capsules",
+              "max_abs_err_radius": errs["radius"],
+              "max_abs_err_threshold": errs["threshold"],
+              "max_abs_err_penalty": ok_p[0][1],
+              "max_abs_err_penalty_grad": ok_p[1][1], "ok": ok})
+        check(ok, "GPU vs CPU capsule spec and penalty")
+
+        gen = torch.Generator().manual_seed(0)
+        head = init_head_lib.init_head_params(gen)
+        head["w3"] = head["w3"] * 30.0
+        batch = init_head_lib._sample_batch(gen, models["cpu"], 64)
+        out = {}
+        for d in devs:
+            hp = {k: v.to(d).requires_grad_(True) for k, v in head.items()}
+            data = [t.to(d) for t in batch]
+            theta, _ = init_head_lib.init_head_apply(hp, data[0], data[1])
+            loss = init_head_lib._loss(hp, models[d], *data)
+            grads = torch.autograd.grad(loss, list(hp.values()))
+            out[d] = (theta.detach().cpu(), loss.detach().cpu(),
+                      [g.cpu() for g in grads])
+        ok_t = close(out[DEVICE][0], out["cpu"][0], 1e-5, 1e-5)
+        loss_rel = float(abs(out[DEVICE][1] - out["cpu"][1])
+                         / out["cpu"][1].abs())
+        grad_ok = all(close(g, c, 1e-4, 1e-4 * float(c.abs().max()))[0]
+                      for g, c in zip(out[DEVICE][2], out["cpu"][2]))
+        ok = ok_t[0] and loss_rel <= 1e-4 and grad_ok
+        emit({"phase": "fit_extras_small_reference", "case": "init_head",
+              "max_abs_err_theta": ok_t[1], "loss_rel_err": loss_rel,
+              "grads_ok": grad_ok, "ok": ok})
+        check(ok, "GPU vs CPU init head")
+
+        small = {d: smpl_data_lib.synthetic_smpl(seed=3, num_verts=500,
+                                                 device=d) for d in devs}
+        prior = {d: priors_lib.synthetic_gmm_prior(0, device=d)
+                 for d in devs}
+        cfg = FitConfig(optimizer="lbfgs", keep_history=True, stages=(
+            StageConfig(iters=10, lr=0.0, opt_pose=False, opt_shape=False,
+                        w_pose_prior=0.0, w_shape_prior=0.0,
+                        w_angle_prior=0.0),
+            StageConfig(iters=10, lr=0.0, w_pose_prior=4.0,
+                        w_shape_prior=5.0, w_angle_prior=15.0,
+                        w_interpenetration=W_INTERPENETRATION)))
+        px, conf = _clean_fit_observations(small["cpu"], (4, 5, 6, 7),
+                                           cfg.img_size)
+        fits = {d: fit_lib.fit_smpl_batch(small[d], px.to(d), conf.to(d),
+                                          cfg, prior[d]) for d in devs}
+        gap = _fit_gap(fits[DEVICE], fits["cpu"], small["cpu"])
+        rel = ((fits[DEVICE].energy_history.cpu()
+                - fits["cpu"].energy_history).abs()
+               / fits["cpu"].energy_history.abs()).amax(0)
+        parted = int(torch.nonzero(rel > 1e-4)[0]) if (rel > 1e-4).any() \
+            else None
+        ok = gap["joints3d_mpjpe_mm"] <= 1.0
+        emit({"phase": "fit_extras_small_reference", "case": "lbfgs_fit",
+              **gap, "energy_traces_part_at_step": parted, "ok": ok})
+        check(ok, f"GPU vs CPU L-BFGS fit: {gap}, traces part at step "
+                  f"{parted}")
+
+        cpm_cfg, fit_cfg = _small_cfgs()
+        small_head = init_head_lib.init_head_params(
+            torch.Generator().manual_seed(1), hidden=32, depth=2)
+        small_head["w2"] = small_head["w2"] * 30.0
+        ests = {d: PoseEstimator.create_synthetic(
+            0, cpm_cfg, fit_cfg, device=d, init_head=small_head)
+            for d in devs}
+        frames = _smooth_frames(2, 64, 64, seed=5)
+        before = cuda_kernels.soft_argmax_cuda.launches
+        want, got = (ests[d].estimate_and_fit(frames) for d in devs)
+        launched = cuda_kernels.soft_argmax_cuda.launches - before
+        j_err = float((got.joints2d.cpu() - want.joints2d).abs().max())
+        gap = _fit_gap(got, want, ests["cpu"].smpl_model)
+        ok = (j_err <= 1e-2 and max(gap["theta"], gap["beta"],
+                                    gap["cam"]) <= 1e-3
+              and gap["joints3d_mpjpe_mm"] <= 1.0
+              and gap["vertices_mean_mm"] <= 1.0 and launched == 1)
+        emit({"phase": "fit_extras_small_reference",
+              "case": "estimate_and_fit_init_head",
+              "max_abs_err_joints2d_px": j_err, **gap,
+              "b1_launches": launched, "ok": ok})
+        check(ok, "GPU vs CPU estimate_and_fit with the init head")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
@@ -1829,6 +2067,7 @@ def main() -> int:
     phase_plain_decode(est, images, res)
     phase_small_reference()
     phase_fit_recovery(est)
+    x_launches = phase_fit_extras_main_path(est, images)
     m_launches = phase_multi_main_path(
         est, two_people_frames(MAIN_BATCH, size, size, seed=7))
 
@@ -1896,6 +2135,7 @@ def main() -> int:
     phase_front_end_small_reference()
     phase_video_small_reference()
     phase_multi_small_reference()
+    phase_fit_extras_small_reference()
 
     q_row = q_timing[QUANT_KERNEL_ROW]
     g_row = g_timing[IM2COL_KERNEL_ROW]
@@ -1916,6 +2156,7 @@ def main() -> int:
         "launches_video_multi_path": vm_launches["soft_argmax"],
         "launches_video_multi_knobs_path": vk_launches["soft_argmax"],
         "launches_video_multi_stream_path": vs_launches["soft_argmax"],
+        "launches_fit_extras_path": x_launches["soft_argmax"],
         "max_abs_err": err["max_abs_err"],
         "ms": sa_row["ms"], "plain_ms": sa_row["plain_ms"],
         "bound_ms": sa_row["bound_ms"], "bound_by": sa_row["bound_by"],

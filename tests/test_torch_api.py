@@ -207,14 +207,20 @@ def test_from_files_loads_what_jax_loads(estimators, tmp_path):
 
 
 def test_unported_knobs_raise(estimators):
-    """Only init_head (ROADMAP.md A.14) is still refused; the front-end
-    knobs construct (as keywords or via front_end=) and reach the
-    estimator, and mixing both ways is an error."""
+    """The knobs that raised before they were ported construct and reach
+    the estimator: init_head (a dict of arrays, held as float32 tensors
+    on the estimator's device) and the front-end knobs (as keywords or
+    via front_end=); mixing both ways is an error."""
     _, test = estimators["float32"]
     args = (test.cpm, test.smpl_model, test.prior, test.cpm_cfg,
             test.fit_cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PoseEstimator(*args, device="cpu", init_head={})
+    head = {"w0": np.ones((42, 4)), "b0": np.zeros(4),
+            "w1": np.zeros((4, 82), np.float32), "b1": np.zeros(82)}
+    est = PoseEstimator(*args, device="cpu", init_head=head)
+    assert sorted(est.init_head) == sorted(head)
+    assert all(v.dtype == torch.float32 and v.device.type == "cpu"
+               for v in est.init_head.values())
+    assert PoseEstimator(*args, device="cpu").init_head is None
     for kw in (dict(refine_center=True), dict(letterbox=True),
                dict(flip_tta=True), dict(scale_tta=(0.8,)),
                dict(front_end=tc.FrontEndConfig(refine_scale=True))):
@@ -234,3 +240,32 @@ def test_unported_knobs_raise(estimators):
                         front_end=tc.FrontEndConfig(fit_restarts=2))
     assert est.fit_restarts == 2
     assert dataclasses.asdict(est.front_end)["fit_restarts"] == 2
+
+
+def test_module_level_api_and_lazy_exports(estimators, monkeypatch):
+    """api.estimate_2d / fit_smpl / estimate_and_fit run on the default
+    estimator (here a small CPU one) or a given one, and the package
+    exports the JAX package's names lazily; its serving classes are not
+    ported yet."""
+    import tpu_pose_torch
+    from tpu_pose_torch import api
+    _, test = estimators["float32"]
+    monkeypatch.setattr(api, "_default_estimator", test)
+    imgs = _images(64, 64, seed=4)
+    r2d = api.estimate_2d(imgs)
+    assert isinstance(r2d, api.Estimate2DResult)
+    torch.testing.assert_close(r2d.joints2d, test.estimate_2d(imgs).joints2d)
+    fit = api.fit_smpl(r2d.joints2d[0].numpy(), r2d.conf[0].numpy())
+    assert fit.theta.shape == (72,)
+    res = api.estimate_and_fit(imgs, estimator=test)
+    assert isinstance(res, api.EstimateAndFitResult)
+    assert res.vertices.shape == (2, 6890, 3)
+    for name in ("PoseEstimator", "estimate_2d", "fit_smpl",
+                 "estimate_and_fit", "MultiPersonVideoSession",
+                 "VideoSession"):
+        assert getattr(tpu_pose_torch, name) is getattr(api, name)
+    for name in ("BatchingServer", "PoseHTTPServer"):
+        with pytest.raises(AttributeError, match="A.16"):
+            getattr(tpu_pose_torch, name)
+    with pytest.raises(AttributeError):
+        tpu_pose_torch.no_such_name

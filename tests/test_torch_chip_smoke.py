@@ -227,3 +227,18 @@ def test_int8_launches_multi_match_a_counted_run(counted, monkeypatch,
     whole = chip_smoke.int8_launches(q, cfg, 2, dynamic, people=people,
                                      crop=crop)
     assert want["quantize_im2col"] > whole["quantize_im2col"]
+
+
+def test_extras_fit_cfg_is_the_default_schedule_with_the_extras():
+    """fit_extras_main_path's fit: the default stages as L-BFGS stages,
+    the interpenetration term on exactly the stages that optimize the
+    body pose."""
+    from tpu_pose_torch.utils.config import FitConfig
+    cfg = chip_smoke.extras_fit_cfg()
+    default = FitConfig()
+    assert cfg.optimizer == "lbfgs"
+    assert len(cfg.stages) == len(default.stages)
+    for got, want in zip(cfg.stages, default.stages):
+        assert got.iters == want.iters and got.opt_pose == want.opt_pose
+        assert got.w_interpenetration == (
+            chip_smoke.W_INTERPENETRATION if want.opt_pose else 0.0)

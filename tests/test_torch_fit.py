@@ -177,21 +177,57 @@ def test_fit_smpl_multistart_end_state(assets):
 
 
 def test_fit_smpl_single_and_unported(assets):
+    """fit_smpl_single is the batch's one row, also with the options that
+    were not ported before (the L-BFGS stage, the interpenetration term),
+    which now run (tests/test_torch_lbfgs.py and
+    tests/test_torch_interpenetration.py hold them against JAX)."""
     _, tm, _, tp = assets
     px, conf = _observations(assets[0], n=1)
     tcfg = tc.FitConfig(stages=(tc.StageConfig(iters=5),), img_size=64)
-    one = torch_fit.fit_smpl_single(tm, torch.from_numpy(px[0]),
-                                    torch.from_numpy(conf[0]), tcfg, tp)
-    batch = torch_fit.fit_smpl_batch(tm, torch.from_numpy(px),
-                                     torch.from_numpy(conf), tcfg, tp)
-    assert one.theta.shape == (72,)
-    torch.testing.assert_close(one.theta, batch.theta[0])
-    with pytest.raises(NotImplementedError, match="A.14"):
-        torch_fit.fit_smpl_batch(tm, torch.from_numpy(px),
-                                 torch.from_numpy(conf),
-                                 dataclasses.replace(tcfg, optimizer="lbfgs"))
     stages = (dataclasses.replace(tcfg.stages[0], w_interpenetration=1e3),)
-    with pytest.raises(NotImplementedError, match="A.14"):
-        torch_fit.fit_smpl_batch(tm, torch.from_numpy(px),
-                                 torch.from_numpy(conf),
-                                 dataclasses.replace(tcfg, stages=stages))
+    for cfg in (tcfg, dataclasses.replace(tcfg, optimizer="lbfgs"),
+                dataclasses.replace(tcfg, stages=stages)):
+        one = torch_fit.fit_smpl_single(tm, torch.from_numpy(px[0]),
+                                        torch.from_numpy(conf[0]), cfg, tp)
+        batch = torch_fit.fit_smpl_batch(tm, torch.from_numpy(px),
+                                         torch.from_numpy(conf), cfg, tp)
+        assert one.theta.shape == (72,)
+        torch.testing.assert_close(one.theta, batch.theta[0])
+        assert torch.isfinite(batch.energy).all()
+
+
+def _pose_corpus(n=400, seed=0):
+    """Body poses from three clusters, the kind of corpus fit_gmm builds a
+    prior from."""
+    rng = np.random.RandomState(seed)
+    centers = 0.3 * rng.randn(3, 69)
+    return centers[rng.randint(3, size=n)] + 0.1 * rng.randn(n, 69)
+
+
+def test_fit_gmm_matches_jax():
+    """Host numpy in float64 in both packages, the same calls in the same
+    order: the same prior within 1e-6 (float32 storage)."""
+    samples = _pose_corpus()
+    want = jax_priors.fit_gmm(samples, num_components=4, iters=15, seed=1)
+    got = torch_priors.fit_gmm(samples, num_components=4, iters=15, seed=1,
+                               device="cpu")
+    for k in ("means", "precisions", "log_consts"):
+        w = np.asarray(getattr(want, k))
+        np.testing.assert_allclose(getattr(got, k).numpy(), w, rtol=1e-6,
+                                   atol=1e-6 * np.abs(w).max(), err_msg=k)
+
+
+def test_gmm_npz_both_ways(tmp_path):
+    """save_gmm_npz of either package loads in the other, exactly."""
+    jp = jax_priors.synthetic_gmm_prior(3, num_components=2)
+    tp = torch_priors.synthetic_gmm_prior(3, num_components=2, device="cpu")
+    a, b = str(tmp_path / "jax.npz"), str(tmp_path / "port.npz")
+    jax_priors.save_gmm_npz(a, jp)
+    torch_priors.save_gmm_npz(b, tp)
+    from_jax = torch_priors.load_gmm_npz(a, device="cpu")
+    from_port = jax_priors.load_gmm_npz(b)
+    for k in ("means", "precisions", "log_consts"):
+        np.testing.assert_array_equal(getattr(from_jax, k).numpy(),
+                                      np.asarray(getattr(jp, k)))
+        np.testing.assert_array_equal(np.asarray(getattr(from_port, k)),
+                                      getattr(tp, k).numpy())

@@ -8,6 +8,7 @@ rotations, see ``LEAF``), β and cam within 1e-3, joints3d MPJPE and mean
 vertex error ≤ 1 mm (BASELINE.json's budget) and energy rtol 1e-3 after
 the fits (float32 sums in another order, as tests/test_torch_fit.py)."""
 
+import dataclasses
 import functools
 
 import jax
@@ -234,18 +235,31 @@ def test_fit_video_stream_matches_jax(assets):
 
 
 def test_interpenetration_raises(assets):
-    _, tm, _, tp = assets
-    px, conf = _sequence(assets[0], t=2)
-    cfg = _fit_cfg(tc)
-    stages = cfg.stages[:-1] + (
-        cfg.stages[-1].__class__(**{**cfg.stages[-1].__dict__,
-                                    "w_interpenetration": 1.0}),)
-    cfg = tc.FitConfig(**{**cfg.__dict__, "stages": stages})
-    args = (tm, torch.from_numpy(px), torch.from_numpy(conf), cfg, tp)
-    for fn in (temporal.fit_video, temporal.fit_video_smooth,
-               temporal.fit_video_independent, temporal.fit_video_stream):
-        with pytest.raises(NotImplementedError, match="A.14"):
-            fn(*args)
+    """The interpenetration term, which raised before it was ported, in
+    the four video fits against JAX, on a one-stage schedule (the full
+    stage, w = 1e3, which the joint refine takes too); the stream form on
+    one chunk (its anchored chunks are
+    test_fit_video_stream_matches_jax's, and the term is per frame)."""
+    jm, tm, jp, tp = assets
+    px, conf = _sequence(jm, t=2)
+
+    def cfg(m):
+        c = _fit_cfg(m)
+        last = dataclasses.replace(c.stages[-1], w_interpenetration=1e3)
+        return dataclasses.replace(c, stages=(last,))
+
+    fits = {"fit_video": dict(warm_iters=5, anchor_restarts=2),
+            "fit_video_smooth": dict(restarts=2, iters=20),
+            "fit_video_independent": {},
+            "fit_video_stream": dict(chunk=2, restarts=2, iters=10)}
+    for name, kw in fits.items():
+        want = jax.jit(functools.partial(
+            getattr(jax_temporal, name), cfg=cfg(jc), prior=jp, **kw))(
+                jm, jnp.asarray(px), jnp.asarray(conf))
+        got = getattr(temporal, name)(tm, torch.from_numpy(px),
+                                      torch.from_numpy(conf), cfg(tc), tp,
+                                      **kw)
+        _compare(jm, got, want)
 
 
 # -- PoseEstimator's video entry points ----------------------------------------

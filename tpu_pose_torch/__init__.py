@@ -9,3 +9,21 @@ JAX package.
 Entry points run on the GPU unless the caller passes ``device="cpu"``;
 without CUDA and without an explicit device they raise.
 """
+
+_API_EXPORTS = ("PoseEstimator", "estimate_2d", "fit_smpl",
+                "estimate_and_fit", "MultiPersonVideoSession",
+                "VideoSession")
+# The JAX package's serving exports, not ported yet.
+_UNPORTED = {"BatchingServer": "ROADMAP.md A.16 (serving)",
+             "PoseHTTPServer": "ROADMAP.md A.16 (serving)"}
+
+
+def __getattr__(name):
+    # Lazy, so `import tpu_pose_torch.models.smpl` does not pull the API.
+    if name in _API_EXPORTS:
+        from tpu_pose_torch import api
+        return getattr(api, name)
+    if name in _UNPORTED:
+        raise AttributeError(f"tpu_pose_torch.{name} is not ported yet: "
+                             f"{_UNPORTED[name]}")
+    raise AttributeError(name)

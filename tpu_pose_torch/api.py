@@ -14,7 +14,9 @@
 
 ``PoseEstimator`` bundles the CPM, the SMPL model, the prior and the
 configs on one device. Inputs may be numpy arrays or tensors; outputs are
-tensors on the estimator's device.
+tensors on the estimator's device. The first three are also module-level
+functions, on a given ``estimator=`` or a synthetic one on the GPU built
+at first use.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 
 from tpu_pose_torch.fitting import fit as fit_lib
+from tpu_pose_torch.fitting import init_head as head_lib
 from tpu_pose_torch.fitting import priors as priors_lib
 from tpu_pose_torch.fitting import temporal, tracking
 from tpu_pose_torch.fitting.fit import FitResult
@@ -124,8 +127,12 @@ class PoseEstimator:
 
     ``device=None`` means CUDA, and raises without it. Front-end knobs are
     those of :class:`FrontEndConfig`, as keywords or as ``front_end=``
-    (``scale_tta`` factors must lie in (0, 16)); ``init_head`` raises
-    ``NotImplementedError`` (ROADMAP.md A.14).
+    (``scale_tta`` factors must lie in (0, 16)). ``init_head``: a trained
+    head's parameters (``fitting/init_head.py``; a dict of arrays or
+    tensors, e.g. from ``load_head``), or None for the mean-pose init; the
+    head initializes the single-start fits of ``fit_smpl``,
+    ``estimate_and_fit`` and ``estimate_and_fit_multi`` (multistart
+    enumerates yaw hypotheses itself; the video paths never use it).
 
     int8 serving path: ``quantize=True`` quantizes the CPM
     (``models/cpm.quantize_params``) with static activation scales
@@ -164,9 +171,6 @@ class PoseEstimator:
             fe = FrontEndConfig(**knobs)
         fe = dataclasses.replace(
             fe, scale_tta=tuple(float(s) for s in fe.scale_tta))
-        if init_head is not None:
-            raise NotImplementedError(
-                "not ported yet: init_head (ROADMAP.md A.14)")
         if not all(0.0 < s < 16.0 for s in fe.scale_tta):
             raise ValueError(f"scale_tta factors must be in (0, 16), got "
                              f"{fe.scale_tta}")
@@ -181,6 +185,8 @@ class PoseEstimator:
         self.scale_tta = fe.scale_tta
         self.letterbox = fe.letterbox
         self.device = resolve_device(device)
+        self.init_head = None if init_head is None else {
+            k: self._tensor(v, torch.float32) for k, v in init_head.items()}
         cpm = cpm.to(self.device).eval()
         # The float twin, kept only when quantizing happens here (an
         # already-quantized CPM has none to fall back to).
@@ -270,6 +276,17 @@ class PoseEstimator:
             cmap = cm.expand(x.shape[0], *cm.shape)
         return cpm_lib.calibrate_act_scales(cpm, x, cmap, cfg)
 
+    def _head_init(self, joints2d_px: torch.Tensor, conf: torch.Tensor):
+        """The learned init of a batch of network-frame pixel joints, or
+        None when no head is attached."""
+        if self.init_head is None:
+            return None
+        half = self.fit_cfg.img_size / 2.0
+        with torch.no_grad():
+            return head_lib.head_init_pytree(
+                self.init_head, self.smpl_model, (joints2d_px - half) / half,
+                conf, self.fit_cfg)
+
     def _params_for_batch(self, batch_size: int):
         """Precision policy: the float CPM below ``int8_min_batch``, the
         int8 one at or above it (the same CPM unless built with
@@ -320,7 +337,9 @@ class PoseEstimator:
                  restarts: int = 1) -> FitResult:
         """2D joints (pixels, CPM order) → (θ, β, cam). Batched if a
         leading axis is present. ``restarts > 1`` fits that many
-        global-yaw hypotheses per sample and keeps the lowest energy."""
+        global-yaw hypotheses per sample and keeps the lowest energy;
+        otherwise the fit starts from ``init``, or the head's init when
+        one is attached."""
         _check_fit_inputs(joints2d, conf, self.cpm_cfg.num_joints)
         j = self._tensor(joints2d, torch.float32)
         c = self._tensor(conf, torch.float32)
@@ -339,6 +358,8 @@ class PoseEstimator:
             if init is not None:
                 init = {k: self._tensor(v, torch.float32)
                         for k, v in init.items()}
+            else:
+                init = self._head_init(j, c)
             res = fit_lib.fit_smpl_batch(self.smpl_model, j, c,
                                          self.fit_cfg, self.prior, init)
         return FitResult(*(f[0] for f in res)) if single else res
@@ -388,7 +409,8 @@ class PoseEstimator:
                 restarts=self.fit_restarts)
         else:
             res = fit_lib.fit_smpl_batch(self.smpl_model, joints, conf,
-                                         self.fit_cfg, self.prior)
+                                         self.fit_cfg, self.prior,
+                                         self._head_init(joints, conf))
         return self._finish(joints, conf, res, images)
 
     # -- video --------------------------------------------------------------
@@ -508,7 +530,8 @@ class PoseEstimator:
                 restarts=self.fit_restarts)
         else:
             res = fit_lib.fit_smpl_batch(self.smpl_model, flat_j, flat_c,
-                                         self.fit_cfg, self.prior)
+                                         self.fit_cfg, self.prior,
+                                         self._head_init(flat_j, flat_c))
         res = FitResult(*(f.reshape(b, k, *f.shape[1:]) for f in res))
         vertices, joints3d = self._mesh(res)
         return MultiPersonResult(
@@ -917,3 +940,31 @@ class MultiPersonVideoSession(_WindowedSession):
         return res._replace(
             **{f: getattr(res, f)[:n_real] for f in _VIDEO_MULTI_T_FIRST},
             **{f: getattr(res, f)[:, :n_real] for f in _VIDEO_MULTI_K_FIRST})
+
+
+# -- module-level functional forms ----------------------------------------
+
+_default_estimator: Optional[PoseEstimator] = None
+
+
+def _default() -> PoseEstimator:
+    """One synthetic estimator on the GPU, built on first use."""
+    global _default_estimator
+    if _default_estimator is None:
+        _default_estimator = PoseEstimator.create_synthetic()
+    return _default_estimator
+
+
+def estimate_2d(images, estimator: Optional[PoseEstimator] = None
+                ) -> Estimate2DResult:
+    return (estimator or _default()).estimate_2d(images)
+
+
+def fit_smpl(joints2d, conf, estimator: Optional[PoseEstimator] = None,
+             **kw) -> FitResult:
+    return (estimator or _default()).fit_smpl(joints2d, conf, **kw)
+
+
+def estimate_and_fit(images, estimator: Optional[PoseEstimator] = None
+                     ) -> EstimateAndFitResult:
+    return (estimator or _default()).estimate_and_fit(images)

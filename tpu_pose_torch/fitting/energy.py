@@ -4,10 +4,12 @@
                    + λ_θ · pose_prior(θ[3:])
                    + λ_a · angle_prior(θ)
                    + λ_β · ‖β‖²
+                   + λ_sp · interpenetration(θ, β)   [optional, default 0]
 
-with ρ the Geman–McClure robustifier (GMoF). Batched: one energy per
-sample, ``(B,)``. The interpenetration term is not ported yet (ROADMAP.md
-A.14); a positive weight raises.
+with ρ the Geman–McClure robustifier (GMoF) and the optional fourth term
+SMPLify's capsule self-interpenetration penalty
+(``fitting/interpenetration.py``). Batched: one energy per sample,
+``(B,)``.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import Any, Dict
 
 import torch
 
+from tpu_pose_torch.fitting import interpenetration as interp_lib
 from tpu_pose_torch.fitting import priors as priors_lib
 from tpu_pose_torch.models import camera as camera_lib
 from tpu_pose_torch.models import joints as joints_lib
@@ -58,13 +61,13 @@ def fit_energy(params: Params, model: SMPLData,
                joints2d_obs: torch.Tensor,   # (B, P, 2), CPM order
                conf: torch.Tensor,           # (B, P)
                stage: StageConfig, cfg: FitConfig,
-               prior: Any = None) -> torch.Tensor:
+               prior: Any = None,
+               capsule_spec: Any = None) -> torch.Tensor:
     """Total energy per sample, (B,). With ``cfg.normalize_obs`` the
     observations arrive in [-1, 1] and ``gmof_sigma`` and the prior
-    weights are rescaled into that frame (``scale``)."""
-    if stage.w_interpenetration > 0.0:
-        raise NotImplementedError(
-            "the interpenetration term is not ported yet (ROADMAP.md A.14)")
+    weights are rescaled into that frame (``scale``). ``capsule_spec``
+    (``interpenetration.CapsuleSpec``) enables the interpenetration term
+    of stages with a positive weight."""
     theta, beta, cam = params["theta"], params["beta"], params["cam"]
     precision = (smpl_lib.EXACT_PRECISION
                  if cfg.smpl_precision == "highest" else None)
@@ -86,4 +89,8 @@ def fit_energy(params: Params, model: SMPLData,
             * scale ** 2
     if stage.w_shape_prior > 0.0:
         e = e + stage.w_shape_prior * (beta * beta).sum(-1) * scale ** 2
+    if capsule_spec is not None and stage.w_interpenetration > 0.0:
+        # Capsule overlap hinge² on the 24 posed joints, in m².
+        e = e + stage.w_interpenetration * interp_lib.interpenetration_penalty(
+            joints, capsule_spec) * scale ** 2
     return e

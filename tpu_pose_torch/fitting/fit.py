@@ -1,16 +1,17 @@
-"""SMPLify-style fit as an eager batched Adam loop (port of
+"""SMPLify-style fit as an eager batched loop (port of
 ``tpu_pose/fitting/fit.py``).
 
 The staged schedule (camera first, then annealed joint optimization) is a
 Python loop over ``FitConfig.stages``; each stage runs ``iters`` Adam
-steps with fresh optimizer state and a per-parameter-group gradient mask.
-A batch of samples is fitted together: one backward of ``energy.sum()``
-gives each sample's own gradient, because the samples are independent —
-the same per-sample updates as the JAX package's ``vmap``.
+steps (or L-BFGS steps, ``fitting/lbfgs.py``) with fresh optimizer state
+and a per-parameter-group mask. A batch of samples is fitted together:
+one backward of ``energy.sum()`` gives each sample's own gradient,
+because the samples are independent — the same per-sample updates as the
+JAX package's ``vmap``.
 
-Nothing inside the step loop reads a device value on the host, so on the
-GPU the loop only queues kernels. Capturing it in a CUDA graph is later
-work (ROADMAP.md).
+Nothing inside the Adam loop reads a device value on the host, so on the
+GPU it only queues kernels; the L-BFGS linesearch reads one flag per
+iteration. Capturing the loops in CUDA graphs is later work (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ from typing import Any, NamedTuple, Optional
 import numpy as np
 import torch
 
+from tpu_pose_torch.fitting import interpenetration as interp_lib
+from tpu_pose_torch.fitting import lbfgs as lbfgs_lib
 from tpu_pose_torch.fitting.energy import fit_energy, perspective_kwargs
 from tpu_pose_torch.models import camera as camera_lib
 from tpu_pose_torch.models import joints as joints_lib
@@ -153,16 +156,12 @@ def _run_adam(energy_fn, x: torch.Tensor, iters: int, lr: float,
     return x.detach(), hist
 
 
-def check_ported(cfg: FitConfig) -> None:
-    """Raise ``NotImplementedError`` for the fit options the port does not
-    have yet: the L-BFGS stage and the interpenetration term (A.14)."""
-    if cfg.optimizer != "adam":
-        raise NotImplementedError(
-            f"optimizer {cfg.optimizer!r} is not ported yet (L-BFGS: "
-            f"ROADMAP.md A.14)")
-    if any(s.w_interpenetration > 0.0 for s in cfg.stages):
-        raise NotImplementedError(
-            "the interpenetration term is not ported yet (ROADMAP.md A.14)")
+def capsule_spec_for(model: SMPLData, stages) -> Optional[Any]:
+    """The interpenetration term's capsules, built once per fit, when some
+    stage weights the term; else None."""
+    if not any(s.w_interpenetration > 0.0 for s in stages):
+        return None
+    return interp_lib.build_capsule_spec(model)
 
 
 def fit_smpl_batch(model: SMPLData, joints2d: torch.Tensor,
@@ -171,24 +170,30 @@ def fit_smpl_batch(model: SMPLData, joints2d: torch.Tensor,
                    ) -> FitResult:
     """Fit SMPL pose/shape/camera to a batch of 2D joints: joints2d
     (B, P, 2) pixels in CPM order, conf (B, P). ``init`` optionally warm
-    starts from {'theta', 'beta', 'cam'} batched tensors."""
-    check_ported(cfg)
+    starts from {'theta', 'beta', 'cam'} batched tensors. Each stage runs
+    L-BFGS when ``cfg.optimizer == "lbfgs"`` (``fitting/lbfgs.py``; the
+    stage's ``lr`` is then unused), else Adam, as in the JAX package."""
     obs = _normalize_obs(joints2d, cfg)
     params = default_init(model, obs, conf, cfg) if init is None else init
     x = torch.cat([params["theta"], params["beta"], params["cam"]],
                   dim=-1).to(torch.float32)
+    capsule_spec = capsule_spec_for(model, cfg.stages)
     hists = []
     for stage in cfg.stages:
         def energy_fn(x, stage=stage):
             return fit_energy(_split(x, cfg), model, obs, conf, stage, cfg,
-                              prior)
-        x, hist = _run_adam(energy_fn, x, stage.iters, stage.lr,
-                            _stage_mask(stage, cfg, x.device),
-                            cfg.keep_history)
+                              prior, capsule_spec)
+        mask = _stage_mask(stage, cfg, x.device)
+        if cfg.optimizer == "lbfgs":
+            x, hist = lbfgs_lib.run_lbfgs(energy_fn, x, stage.iters, mask,
+                                          cfg.keep_history)
+        else:
+            x, hist = _run_adam(energy_fn, x, stage.iters, stage.lr, mask,
+                                cfg.keep_history)
         hists += hist
     with torch.no_grad():
         final_e = fit_energy(_split(x, cfg), model, obs, conf,
-                             cfg.stages[-1], cfg, prior)
+                             cfg.stages[-1], cfg, prior, capsule_spec)
     history = (torch.stack(hists, dim=-1) if cfg.keep_history
                else torch.zeros(x.shape[0], 0, device=x.device))
     p = _split(x, cfg)

@@ -99,8 +99,78 @@ def synthetic_gmm_prior(seed: int = 0, num_components: int = 8,
     return make_gmm_prior(means, np.stack(covs), weights, device)
 
 
+def _log_gauss(x: np.ndarray, means: np.ndarray, precisions: np.ndarray,
+               logdets: np.ndarray) -> np.ndarray:
+    """Row-wise log N(x_n | mean_k, prec_k⁻¹) → (N, K), host numpy."""
+    d = x[:, None, :] - means[None, :, :]                     # (N, K, D)
+    maha = np.einsum("nkd,kde,nke->nk", d, precisions, d)
+    dim = x.shape[1]
+    return 0.5 * (logdets - dim * np.log(2.0 * np.pi) - maha)
+
+
+def fit_gmm(samples: np.ndarray, num_components: int = 8,
+            iters: int = 100, seed: int = 0, ridge: float = 1e-4,
+            tol: float = 1e-6, device=None) -> GMMPrior:
+    """Fit a full-covariance GMM to pose samples (N, D) by EM, host numpy
+    in float64 — the JAX package's ``fit_gmm``, call for call, so the same
+    samples and seed give the same prior. A few Lloyd iterations seed the
+    means (without them EM collapses every mean onto the corpus mean);
+    empty components are re-seeded from random samples; ``ridge`` keeps
+    the covariances SPD. Returns the precision-form prior on ``device``."""
+    x = np.asarray(samples, np.float64)
+    n, dim = x.shape
+    k = min(num_components, n)
+    rng = np.random.RandomState(seed)
+
+    means = x[rng.choice(n, k, replace=False)].copy()
+    for _ in range(10):
+        d2 = ((x[:, None, :] - means[None]) ** 2).sum(-1)     # (N, K)
+        assign = d2.argmin(1)
+        for j in range(k):
+            sel = x[assign == j]
+            means[j] = sel.mean(0) if len(sel) else x[rng.randint(n)]
+    base_cov = np.cov(x, rowvar=False) + ridge * np.eye(dim)
+    covs = np.tile(base_cov, (k, 1, 1))
+    weights = np.full(k, 1.0 / k)
+
+    prev_ll = -np.inf
+    for _ in range(iters):
+        precisions = np.linalg.inv(covs)
+        _, logdets = np.linalg.slogdet(precisions)
+        log_r = np.log(weights)[None, :] + _log_gauss(
+            x, means, precisions, logdets)                    # (N, K)
+        norm = np.logaddexp.reduce(log_r, axis=1)             # (N,)
+        ll = float(norm.mean())
+        resp = np.exp(log_r - norm[:, None])                  # (N, K)
+
+        nk = resp.sum(0)                                      # (K,)
+        for j in np.nonzero(nk < 1e-6)[0]:                    # dead comp.
+            means[j] = x[rng.randint(n)]
+            covs[j] = base_cov
+            nk[j] = 1e-6
+        weights = nk / nk.sum()
+        means = (resp.T @ x) / nk[:, None]
+        for j in range(k):
+            d = x - means[j]
+            covs[j] = ((resp[:, j, None] * d).T @ d) / nk[j] \
+                + ridge * np.eye(dim)
+
+        if ll - prev_ll < tol:
+            break
+        prev_ll = ll
+
+    return make_gmm_prior(means, covs, weights, device)
+
+
+def save_gmm_npz(path: str, prior: GMMPrior) -> None:
+    """Save a (fitted) prior in precision form, the JAX package's npz
+    keys: either package's ``load_gmm_npz`` reads it."""
+    np.savez(path, **{f.name: getattr(prior, f.name).detach().cpu().numpy()
+                      for f in dataclasses.fields(prior)})
+
+
 def load_gmm_npz(path: str, device=None) -> GMMPrior:
-    """Load a precision-form prior saved by the JAX package's
+    """Load a precision-form prior saved by either package's
     ``save_gmm_npz``."""
     with np.load(path) as z:
         return gmm_prior_from_numpy(z["means"], z["precisions"],

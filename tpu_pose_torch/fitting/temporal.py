@@ -27,7 +27,7 @@ import torch
 
 from tpu_pose_torch.fitting.energy import fit_energy
 from tpu_pose_torch.fitting.fit import (FitResult, _normalize_obs, _run_adam,
-                                        check_ported, fit_smpl_batch,
+                                        capsule_spec_for, fit_smpl_batch,
                                         fit_smpl_multistart, fit_smpl_single)
 from tpu_pose_torch.models.smpl_data import SMPLData
 from tpu_pose_torch.utils.config import FitConfig
@@ -53,7 +53,6 @@ def fit_video(model: SMPLData, joints2d_seq: torch.Tensor,
     1); frames 1..T−1 each get ``warm_iters`` steps of the last stage
     seeded from frame t−1's solution, one after another; then every frame
     is refined together with the full last stage."""
-    check_ported(cfg)
     if anchor_restarts > 1:
         first = fit_smpl_multistart(model, joints2d_seq[:1], conf_seq[:1],
                                     cfg, prior, restarts=anchor_restarts)
@@ -180,8 +179,9 @@ def fit_video_smooth_tracks(model: SMPLData, joints2d: torch.Tensor,
     selection batched over K, and one Adam loop on one flat vector of all
     K sequences' parameters: the energies of the sequences are independent
     and Adam is elementwise, so the gradient of their sum gives each
-    sequence its own updates. Results are (K, T, ...)."""
-    check_ported(cfg)
+    sequence its own updates. Results are (K, T, ...). The joint refine
+    is Adam whatever ``cfg.optimizer`` says, and takes the last stage's
+    interpenetration weight, as in the JAX package."""
     select_weight = (cfg.video_select_weight if select_weight is None
                      else select_weight)
     smooth_theta = (cfg.video_smooth_theta if smooth_theta is None
@@ -219,6 +219,7 @@ def fit_video_smooth_tracks(model: SMPLData, joints2d: torch.Tensor,
     stage = cfg.stages[-1]
     scale = (2.0 / cfg.img_size) if cfg.normalize_obs else 1.0
     s2 = scale * scale
+    capsule_spec = capsule_spec_for(model, (stage,))
     n_theta, n_beta = base.theta.numel(), beta0.numel()
 
     def split(x):
@@ -231,7 +232,8 @@ def fit_video_smooth_tracks(model: SMPLData, joints2d: torch.Tensor,
 
     def frame_energies(p):
         e = fit_energy({k: v.reshape(kt * n, -1) for k, v in p.items()},
-                       model, obs, flat_c, stage, cfg, prior).reshape(kt, n)
+                       model, obs, flat_c, stage, cfg, prior,
+                       capsule_spec).reshape(kt, n)
         # where(), not a product: a NaN/inf pad energy times 0 is NaN.
         return e if frame_mask is None else torch.where(frame_mask > 0, e,
                                                         0.0)

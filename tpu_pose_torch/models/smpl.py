@@ -134,6 +134,11 @@ def smpl_forward(data: SMPLData, beta: torch.Tensor, theta: torch.Tensor,
     return SMPLOutput(vertices=verts, joints=joints_world, rotmats=rotmats)
 
 
+# The JAX package's name for the batched forward (its smpl_forward is one
+# body); here every function is batched.
+smpl_forward_batch = smpl_forward
+
+
 def smpl_joints(data: SMPLData, beta: torch.Tensor, theta: torch.Tensor,
                 precision=None) -> torch.Tensor:
     """The posed joints of :func:`smpl_forward` (B, J, 3) without the

@@ -65,8 +65,8 @@ class StageConfig:
     w_pose_prior: float = 4.0
     w_shape_prior: float = 5.0
     w_angle_prior: float = 15.0
-    # Capsule self-interpenetration penalty. Not ported yet: a weight
-    # above 0 raises in fitting/energy.py (ROADMAP.md A.14).
+    # Capsule self-interpenetration penalty (fitting/interpenetration.py);
+    # off by default.
     w_interpenetration: float = 0.0
 
 
@@ -106,7 +106,7 @@ class FitConfig:
     # Observations are normalized to [-1, 1] inside the fit so one Adam lr
     # serves pose (radians), shape (σ-units) and camera.
     normalize_obs: bool = True
-    optimizer: str = "adam"       # "adam" | "lbfgs" (lbfgs: ROADMAP A.14)
+    optimizer: str = "adam"       # "adam" | "lbfgs" (fitting/lbfgs.py)
     num_betas: int = 10
     num_joints_smpl: int = 24
     keep_history: bool = False    # return per-iteration energy trace

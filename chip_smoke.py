@@ -65,7 +65,19 @@ port's dependencies (torch, numpy). It
    launch per call) and recovers known bodies with L-BFGS too
    (``fit_recovery``); holds the capsules, the head and an L-BFGS fit on
    the GPU against the CPU (``fit_extras_small_reference``);
-11. prints a ``{"kernels": [...]}`` line and, last,
+11. builds the native host letterbox (``g++``) and holds it within 1
+   LSB of the numpy path on camera frames (``native_letterbox_check``);
+   serves the bf16 estimator over HTTP (``serving_main_path``: one
+   bucket-8 batch against a direct call, then 48 mixed-resolution frames
+   from 8 client threads, closed loop and open loop at half the measured
+   capacity, and from 16 closed-loop threads, with the pipeline's
+   readiness check on and off, one B1 launch per batch),
+   the int8 estimator in process
+   (``serving_int8``: a bucket-32 batch with B2's launches of two chunks,
+   a bucket-1 batch without B2), ``fn="fit_smpl"`` over ``/fit`` with
+   COCO-17 joints of planted bodies (``serving_fit``) and
+   ``fn="estimate_and_fit_multi"`` (``serving_multi``);
+12. prints a ``{"kernels": [...]}`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Every phase prints one JSON object per line. Any failed check raises, so
@@ -76,12 +88,15 @@ exits 2 at once. It imports torch, numpy, the standard library and
 
 from __future__ import annotations
 
+import concurrent.futures
 import copy
 import dataclasses
+import importlib.util
 import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import warnings
 
@@ -91,8 +106,10 @@ import torch.nn.functional as F
 from torch.autograd import DeviceType
 
 from tpu_pose_torch import api as api_lib
+from tpu_pose_torch import native, serving
 from tpu_pose_torch.api import (MultiPersonVideoSession, PoseEstimator,
                                 VideoSession)
+from tpu_pose_torch.client import PoseClient
 from tpu_pose_torch.fitting import fit as fit_lib
 from tpu_pose_torch.fitting import init_head as init_head_lib
 from tpu_pose_torch.fitting import interpenetration as interp_lib
@@ -107,6 +124,7 @@ from tpu_pose_torch.ops import cuda_kernels
 from tpu_pose_torch.ops import preprocess as pre
 from tpu_pose_torch.ops import quantize as quantize_lib
 from tpu_pose_torch.ops import softargmax as softargmax_lib
+from tpu_pose_torch.serving_http import PoseHTTPServer
 from tpu_pose_torch.utils.config import CPMConfig, FitConfig, StageConfig
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM bandwidth and
@@ -2038,6 +2056,378 @@ def phase_fit_extras_small_reference() -> None:
         check(ok, "GPU vs CPU estimate_and_fit with the init head")
 
 
+# -- serving (ROADMAP A.16) ----------------------------------------------------
+
+SERVE_BATCH = 8                    # max_batch of the served bf16 estimator
+SERVE_WAIT_MS = 20.0
+SERVE_FIELDS = ("joints2d", "conf", "theta", "beta", "cam", "joints3d",
+                "energy")
+SERVE_LOAD_HW = ((368, 368), (480, 640), (720, 1280))
+SERVE_LOAD_FRAMES = 48
+SERVE_CLIENTS = 8                  # client threads of the load
+LETTERBOX_HW = ((480, 640), (720, 1280), (1080, 1920))
+# COCO-17 slot of each CPM-14 joint (head → nose; the neck has no COCO
+# keypoint and comes back as the shoulders' midpoint).
+CPM_TO_COCO = {0: 0, **joints_lib.COCO_TO_CPM_DIRECT}
+
+
+def serving_b1_per_batch(bucket: int, microbatch: int) -> int:
+    """B1's launches in one served estimate_and_fit batch: one decode per
+    CPM chunk (``cpm_microbatch`` frames; 0 = the whole bucket)."""
+    return -(-bucket // microbatch) if microbatch else 1
+
+
+def serving_b2_launches(qcpm, cfg: CPMConfig, bucket: int, microbatch: int,
+                        min_batch: int) -> dict:
+    """B2's launches in one served batch on a ``quantize=True`` estimator
+    with static scales: none below ``int8_min_batch`` (the float CPM),
+    else ``int8_launches`` of each CPM chunk."""
+    total = dict(B2_NONE)
+    if bucket < min_batch:
+        return total
+    step = microbatch or bucket
+    for start in range(0, bucket, step):
+        n = min(step, bucket - start)
+        for k, v in int8_launches(qcpm, cfg, n, False).items():
+            total[k] += v
+    return total
+
+
+def cpm_to_coco(joints14: np.ndarray, conf14: np.ndarray):
+    """CPM-14 joints as a COCO-17 detector would give them (eyes and ears
+    at the head), for the /fit route's ``coco_to_cpm``."""
+    j = np.repeat(joints14[..., :1, :], 17, axis=-2)
+    c = np.repeat(conf14[..., :1], 17, axis=-1)
+    for cpm_i, coco_i in CPM_TO_COCO.items():
+        j[..., coco_i, :] = joints14[..., cpm_i, :]
+        c[..., coco_i] = conf14[..., cpm_i]
+    return j, c
+
+
+def source_frame_bounds(h: int, w: int, size: int) -> tuple:
+    """(x0, y0, x1, y1): the network frame mapped to an (h, w) frame's
+    source pixels, where its letterboxed joints can land."""
+    a = pre.letterbox_affine(h, w, size).astype(np.float64)
+    return (-a[2] / a[0], -a[3] / a[1], (size - a[2]) / a[0],
+            (size - a[3]) / a[1])
+
+
+def phase_native_letterbox_check() -> dict:
+    """The native letterbox must build here (g++ comes with nvcc): within
+    1 LSB of the numpy path on camera frames letterboxed to the network
+    size, host ms per frame for both."""
+    check(native.available(), "native letterbox did not build or load")
+    size = MAIN_CPM.input_size
+    rows = {}
+    for h, w in LETTERBOX_HW:
+        img = _frames(1, h, w, seed=h)[0]
+        out = native.letterbox_u8(img, size)
+        ref = pre.letterbox_numpy(img, size)
+        err = int(np.abs(out.astype(int) - ref.astype(int)).max())
+        check(err <= 1, f"native letterbox {h}x{w}: {err} LSB from numpy")
+        ms = {}
+        for name, fn in (("native", native.letterbox_u8),
+                         ("numpy", pre.letterbox_numpy)):
+            reps = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                fn(img, size)
+                reps.append((time.perf_counter() - t0) * 1e3)
+            ms[name] = statistics.median(reps)
+        rows[f"{h}x{w}"] = {"max_lsb": err, "native_ms": ms["native"],
+                            "numpy_ms": ms["numpy"]}
+    emit({"phase": "native_letterbox_check", "size": size,
+          "library": str(native.library_path()), "frames": rows,
+          "pil": importlib.util.find_spec("PIL") is not None})
+    return rows
+
+
+def _load_frames(seed: int) -> list:
+    """``SERVE_LOAD_FRAMES`` uint8 frames cycling through
+    ``SERVE_LOAD_HW``."""
+    return [_frames(1, *SERVE_LOAD_HW[i % len(SERVE_LOAD_HW)],
+                    seed=seed + i)[0] for i in range(SERVE_LOAD_FRAMES)]
+
+
+def _serve_load(est: PoseEstimator, frames: list, clients: int,
+                finish_ready_first: bool, rate: float = 0.0) -> dict:
+    """An HTTP server around ``est`` and ``clients`` threads sharing the
+    port's PoseClient. Closed loop (``rate`` 0): each thread sends its
+    share of ``frames`` one after the other. Open loop: request i is sent
+    at i / ``rate`` seconds, whatever is still in flight. Counts are
+    zeroed just before and read just after. Checks every response (shape,
+    finite, joints where the letterboxed frame can put them) and one B1
+    launch per batch."""
+    srv = PoseHTTPServer(est, max_batch=SERVE_BATCH,
+                         max_wait_ms=SERVE_WAIT_MS, max_queue=0,
+                         fields=SERVE_FIELDS)
+    srv.server.finish_ready_first = finish_ready_first
+    client = PoseClient(f"http://{srv.host}:{srv.port}")
+    outs = [None] * len(frames)
+    size = est.cpm_cfg.input_size
+
+    def send(i):
+        outs[i] = client.predict(frames[i])
+
+    def worker(k):
+        for i in range(k, len(frames), clients):
+            send(i)
+
+    try:
+        zero_counts()
+        t0 = time.perf_counter()
+        if rate:
+            with concurrent.futures.ThreadPoolExecutor(clients) as pool:
+                futs = []
+                for i in range(len(frames)):
+                    time.sleep(max(0.0, t0 + i / rate - time.perf_counter()))
+                    futs.append(pool.submit(send, i))
+                for f in futs:
+                    f.result(timeout=600)
+        else:
+            threads = [threading.Thread(target=worker, args=(k,))
+                       for k in range(clients)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            check(not any(t.is_alive() for t in threads),
+                  "a load client hung")
+        seconds = time.perf_counter() - t0
+        launches = read_counts()
+        snap = srv.server.telemetry()
+    finally:
+        client.close()
+        srv.shutdown()
+    inside = 0
+    for img, out in zip(frames, outs):
+        check(out is not None, "a load request got no response")
+        h, w = img.shape[:2]
+        for k, shape in (("joints2d", (14, 2)), ("theta", (72,)),
+                         ("joints3d", (24, 3))):
+            check(out[k].shape == shape and np.isfinite(out[k]).all(),
+                  f"served {k} of a {h}x{w} frame: {out[k].shape}")
+        x0, y0, x1, y1 = source_frame_bounds(h, w, size)
+        j = out["joints2d"]
+        check(bool(((j[:, 0] >= x0 - 1e-3) & (j[:, 0] <= x1 + 1e-3)
+                    & (j[:, 1] >= y0 - 1e-3) & (j[:, 1] <= y1 + 1e-3))
+                   .all()), f"served joints outside the {h}x{w} frame's "
+              f"letterbox: {j.min(0)}, {j.max(0)}")
+        if (h, w) == (size, size):
+            check(bool(((j >= 0) & (j <= size)).all()),
+                  "served joints of a network-sized frame outside it")
+        inside += int(((j[:, 0] >= 0) & (j[:, 0] <= w) & (j[:, 1] >= 0)
+                       & (j[:, 1] <= h)).sum())
+    check(launches["soft_argmax"] == snap["batches"]
+          and launches == {**B2_NONE, "soft_argmax": snap["batches"]},
+          f"served load launched {launches} in {snap['batches']} batches")
+    return {"clients": clients, "finish_ready_first": finish_ready_first,
+            "open_loop_rate": rate,
+            "requests": snap["requests"], "seconds": seconds,
+            "requests_per_s": snap["requests"] / seconds,
+            "latency_ms_p50": snap["latency_ms_p50"],
+            "latency_ms_p99": snap["latency_ms_p99"],
+            "batches": snap["batches"], "mean_batch": snap["mean_batch"],
+            "occupancy": snap["occupancy"],
+            "seconds_per_batch": seconds / snap["batches"],
+            "service_s_ema": snap["service_s_ema"], "launches": launches,
+            "pipeline_counts": srv.server.pipeline_counts,
+            "joints_inside_source_frame": inside / (14 * len(frames))}
+
+
+def phase_serving_main_path(est: PoseEstimator) -> dict:
+    """The served main path: a PoseHTTPServer around the bf16 full-width
+    estimator (max_batch 8, default buckets, max_wait 20 ms).
+
+    Exactness: one /predict_batch of 8 network-sized frames forms one
+    bucket-8 batch, held against a direct estimate_and_fit on the same
+    frames (tests/test_torch_api.py's bf16 bounds: joints2d 8 px, joints3d
+    25 mm), the gap reported. Load: 48 mixed-resolution frames from 8
+    client threads (one B1 per batch), closed loop, then open loop at
+    half the capacity (8 frames per direct call; requests arrive during
+    a launch), then from 16 closed-loop threads (a full batch queues
+    during each launch), each with the pipeline's readiness check on and
+    off, beside a direct call's seconds at bucket 8."""
+    size = est.cpm_cfg.input_size
+    frames = _frames(SERVE_BATCH, size, size, seed=21)
+    direct, direct_s = _timed_calls(lambda: est.estimate_and_fit(frames), 3)
+    again = est.estimate_and_fit(frames)
+    torch.cuda.synchronize()
+    with PoseHTTPServer(est, max_batch=SERVE_BATCH,
+                        max_wait_ms=SERVE_WAIT_MS,
+                        fields=SERVE_FIELDS) as srv:
+        zero_counts()
+        with PoseClient(f"http://{srv.host}:{srv.port}") as client:
+            got = client.predict_batch(frames)
+        launches = read_counts()
+        snap = srv.server.telemetry()
+    check(snap["batches"] == 1 and snap["occupancy"] == 1.0,
+          f"/predict_batch of {SERVE_BATCH} formed {snap['batches']} "
+          f"batches at occupancy {snap['occupancy']}")
+    check(launches == {**B2_NONE, "soft_argmax": 1},
+          f"one served batch launched {launches}")
+    gap = {k: float(np.abs(got[k] - getattr(direct, k).cpu().numpy()).max())
+           for k in SERVE_FIELDS}
+    # The fit is not bit-reproducible on the card from one call to the
+    # next: the same direct call twice, for scale.
+    self_gap = {k: float((getattr(again, k) - getattr(direct, k)).abs()
+                         .max()) for k in SERVE_FIELDS}
+    mpjpe_mm = 1000.0 * float(np.linalg.norm(
+        got["joints3d"] - direct.joints3d.cpu().numpy(), axis=-1).mean())
+    check(gap["joints2d"] <= 8.0 and mpjpe_mm <= 25.0,
+          f"served batch vs direct call: joints2d {gap['joints2d']} px, "
+          f"joints3d {mpjpe_mm} mm")
+    # Open loop at half the capacity a direct call measures on this host.
+    open_rate = 0.5 * SERVE_BATCH / statistics.median(direct_s)
+    loads = [_serve_load(est, _load_frames(100), clients, on, rate)
+             for clients, rate in ((SERVE_CLIENTS, 0.0),
+                                   (SERVE_CLIENTS, open_rate),
+                                   (2 * SERVE_CLIENTS, 0.0))
+             for on in (True, False)]
+    emit({"phase": "serving_main_path", "max_batch": SERVE_BATCH,
+          "max_wait_ms": SERVE_WAIT_MS, "buckets": list(
+              serving.default_buckets(SERVE_BATCH)),
+          "exact": {"max_abs_gap": gap, "joints3d_mpjpe_mm": mpjpe_mm,
+                    "bit_equal": all(v == 0.0 for v in gap.values()),
+                    "direct_twice_max_abs_gap": self_gap,
+                    "launches": launches},
+          "direct_s_bucket8": direct_s, "loads": loads})
+    return loads[0]["launches"]
+
+
+def phase_serving_int8(est: PoseEstimator, per_chunk: dict) -> dict:
+    """An in-process BatchingServer around the int8 estimator (max_batch
+    32, cpm_microbatch 16): a burst of 32 requests forms one bucket-32
+    batch, with B2's launches of its two chunks; a lone request forms a
+    bucket-1 batch on the bf16 CPM, no B2."""
+    size = est.cpm_cfg.input_size
+    frames = _frames(INT8_BATCH, size, size, seed=22)
+    out = {}
+    with serving.BatchingServer(est, max_batch=INT8_BATCH,
+                                max_wait_ms=200.0,
+                                fields=("joints2d", "theta")) as srv:
+        for name, burst in (("bucket32", frames), ("bucket1", frames[:1])):
+            bucket = len(burst)
+            before = srv.stats.snapshot()["batches"]
+            zero_counts()
+            t0 = time.perf_counter()
+            res = [f.result(timeout=600) for f in srv.submit_many(burst)]
+            seconds = time.perf_counter() - t0
+            launches = read_counts()
+            want = {"soft_argmax": serving_b1_per_batch(
+                bucket, est.cpm_microbatch), **serving_b2_launches(
+                est.cpm, est.cpm_cfg, bucket, est.cpm_microbatch,
+                est.int8_min_batch)}
+            check(srv.stats.snapshot()["batches"] == before + 1,
+                  f"serving_int8 {name}: not one batch")
+            check(launches == want, f"serving_int8 {name} launched "
+                  f"{launches}, expected {want}")
+            check(all(np.isfinite(r["theta"]).all() for r in res),
+                  f"serving_int8 {name}: non-finite θ")
+            out[name] = {"launches": launches, "seconds": seconds}
+    check(out["bucket32"]["launches"]["quantize_im2col"]
+          == 2 * per_chunk["quantize_im2col"], "bucket 32 is two chunks")
+    emit({"phase": "serving_int8", "max_batch": INT8_BATCH,
+          "cpm_microbatch": est.cpm_microbatch,
+          "int8_min_batch": est.int8_min_batch, **out})
+    return out["bucket32"]["launches"]
+
+
+def phase_serving_fit(est: PoseEstimator) -> dict:
+    """A fn="fit_smpl" HTTP server: planted bodies' projected joints, as
+    a COCO-17 detector would give them, through coco_to_cpm to /fit in
+    one request of 8 rows; held against a direct fit_smpl on the same
+    joints (joints3d within 1 mm, the reprojection error as
+    fit_recovery's Adam case measures it), no kernel launched."""
+    model = est.smpl_model
+    px, conf = _clean_fit_observations(model, range(40, 48),
+                                       est.fit_cfg.img_size)
+    coco, coco_conf = cpm_to_coco(px.cpu().numpy(), conf.cpu().numpy())
+    j14, c14 = joints_lib.coco_to_cpm(coco, coco_conf)
+    direct = est.fit_smpl(j14, c14)
+    torch.cuda.synchronize()
+    with PoseHTTPServer(est, max_batch=SERVE_BATCH, max_wait_ms=200.0,
+                        fn="fit_smpl") as srv:
+        zero_counts()
+        t0 = time.perf_counter()
+        with PoseClient(f"http://{srv.host}:{srv.port}") as client:
+            got = client.fit(j14, c14)
+        seconds = time.perf_counter() - t0
+        launches = read_counts()
+        batches = srv.server.stats.snapshot()["batches"]
+    half = est.fit_cfg.img_size / 2.0
+    obs = torch.from_numpy(j14).to(DEVICE)
+
+    def reproj_px(theta, beta, cam):
+        r = fit_lib.FitResult(torch.as_tensor(theta, device=DEVICE),
+                              torch.as_tensor(beta, device=DEVICE),
+                              torch.as_tensor(cam, device=DEVICE),
+                              None, None)
+        with torch.no_grad():
+            pred = fit_lib.reproject(model, r, est.fit_cfg)
+        return float(((pred * half + half) - obs).norm(dim=-1).mean())
+
+    with torch.no_grad():
+        j3d = [smpl_lib.smpl_joints(model, torch.as_tensor(b, device=DEVICE),
+                                    torch.as_tensor(t, device=DEVICE),
+                                    smpl_lib.EXACT_PRECISION).cpu().numpy()
+               for t, b in ((got["theta"], got["beta"]),
+                            (direct.theta, direct.beta))]
+    mpjpe_mm = 1000.0 * float(np.linalg.norm(j3d[0] - j3d[1],
+                                             axis=-1).mean())
+    e_served = reproj_px(got["theta"], got["beta"], got["cam"])
+    e_direct = reproj_px(direct.theta, direct.beta, direct.cam)
+    theta_gap = float(np.abs(got["theta"]
+                             - direct.theta.cpu().numpy()).max())
+    emit({"phase": "serving_fit", "rows": len(j14), "batches": batches,
+          "seconds": seconds, "launches": launches,
+          "joints3d_mpjpe_mm": mpjpe_mm, "theta_max_gap": theta_gap,
+          "reproj_px_served": e_served, "reproj_px_direct": e_direct})
+    check(batches == 1, f"/fit of {len(j14)} rows formed {batches} batches")
+    check(launches == {**B2_NONE, "soft_argmax": 0},
+          f"serving_fit launched {launches}")
+    check(mpjpe_mm <= 1.0 and abs(e_served - e_direct) <= 0.5,
+          f"served fit vs direct: {mpjpe_mm} mm, reprojection "
+          f"{e_served} vs {e_direct} px")
+    return launches
+
+
+def phase_serving_multi(est: PoseEstimator) -> dict:
+    """fn="estimate_and_fit_multi" with max_people 2 on frames of two
+    planted people: one batch of 8, person_mask equal to a direct call's,
+    B1 as ``multi_b1_launches`` per batch, no B2."""
+    size = est.cpm_cfg.input_size
+    frames = two_people_frames(SERVE_BATCH, size, size, seed=23)
+    direct = est.estimate_and_fit_multi(frames, max_people=MULTI_PEOPLE)
+    torch.cuda.synchronize()
+    with serving.BatchingServer(
+            est, max_batch=SERVE_BATCH, max_wait_ms=200.0,
+            fn="estimate_and_fit_multi",
+            fn_kwargs={"max_people": MULTI_PEOPLE},
+            fields=("joints2d", "person_mask", "theta")) as srv:
+        zero_counts()
+        t0 = time.perf_counter()
+        res = [f.result(timeout=600) for f in srv.submit_many(frames)]
+        seconds = time.perf_counter() - t0
+        launches = read_counts()
+        batches = srv.stats.snapshot()["batches"]
+    mask = np.stack([r["person_mask"] for r in res])
+    want = {**B2_NONE,
+            "soft_argmax": multi_b1_launches(False, False) * batches}
+    emit({"phase": "serving_multi", "batch": SERVE_BATCH,
+          "batches": batches, "seconds": seconds, "launches": launches,
+          "person_mask": mask.tolist(),
+          "joints2d_max_gap": float(np.abs(
+              np.stack([r["joints2d"] for r in res])
+              - direct.joints2d.cpu().numpy()).max())})
+    check(batches == 1, f"serving_multi formed {batches} batches")
+    check(np.array_equal(mask, direct.person_mask.cpu().numpy()),
+          "served person_mask differs from the direct call's")
+    check(launches == want, f"serving_multi launched {launches}, expected "
+          f"{want}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
@@ -2053,6 +2443,7 @@ def main() -> int:
     q_timing = phase_quantize_act_timing(replay)
     g_err = phase_quantize_im2col_check()
     g_timing = phase_quantize_im2col_timing(replay)
+    phase_native_letterbox_check()
 
     t0 = time.perf_counter()
     est = PoseEstimator.create_synthetic(seed=0, cpm_cfg=MAIN_CPM,
@@ -2070,6 +2461,9 @@ def main() -> int:
     x_launches = phase_fit_extras_main_path(est, images)
     m_launches = phase_multi_main_path(
         est, two_people_frames(MAIN_BATCH, size, size, seed=7))
+    s_launches = phase_serving_main_path(est)
+    sf_launches = phase_serving_fit(est)
+    sm_launches = phase_serving_multi(est)
 
     t0 = time.perf_counter()
     est8 = PoseEstimator.create_synthetic(
@@ -2093,6 +2487,7 @@ def main() -> int:
     phase_int8_small_reference()
     mi_launches = phase_multi_int8(
         est8, two_people_frames(INT8_CHUNK, size, size, seed=11))
+    si_launches = phase_serving_int8(est8, per_chunk)
 
     t0 = time.perf_counter()
     est_fe = PoseEstimator.create_synthetic(seed=0, cpm_cfg=MAIN_CPM,
@@ -2157,6 +2552,10 @@ def main() -> int:
         "launches_video_multi_knobs_path": vk_launches["soft_argmax"],
         "launches_video_multi_stream_path": vs_launches["soft_argmax"],
         "launches_fit_extras_path": x_launches["soft_argmax"],
+        "launches_serving_path": s_launches["soft_argmax"],
+        "launches_serving_int8_path": si_launches["soft_argmax"],
+        "launches_serving_multi_path": sm_launches["soft_argmax"],
+        "launches_serving_fit_path": sf_launches["soft_argmax"],
         "max_abs_err": err["max_abs_err"],
         "ms": sa_row["ms"], "plain_ms": sa_row["plain_ms"],
         "bound_ms": sa_row["bound_ms"], "bound_by": sa_row["bound_by"],
@@ -2170,6 +2569,7 @@ def main() -> int:
         "launches": launches8["quantize_act"],
         "launches_video_int8_path": v8_launches["quantize_act"],
         "launches_multi_int8_path": mi_launches["quantize_act"],
+        "launches_serving_int8_path": si_launches["quantize_act"],
         "max_abs_err": q_err["max_abs_err"],
         "ms": q_row["ms"], "plain_ms": q_row["plain_ms"],
         "bound_ms": q_row["bound_ms"], "bound_by": q_row["bound_by"],
@@ -2183,6 +2583,7 @@ def main() -> int:
         "launches": launches8["quantize_im2col"],
         "launches_video_int8_path": v8_launches["quantize_im2col"],
         "launches_multi_int8_path": mi_launches["quantize_im2col"],
+        "launches_serving_int8_path": si_launches["quantize_im2col"],
         "max_abs_err": g_err["max_abs_err"],
         "ms": g_row["ms"], "plain_ms": g_row["plain_ms"],
         "bound_ms": g_row["bound_ms"], "bound_by": g_row["bound_by"],

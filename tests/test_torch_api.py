@@ -245,8 +245,8 @@ def test_unported_knobs_raise(estimators):
 def test_module_level_api_and_lazy_exports(estimators, monkeypatch):
     """api.estimate_2d / fit_smpl / estimate_and_fit run on the default
     estimator (here a small CPU one) or a given one, and the package
-    exports the JAX package's names lazily; its serving classes are not
-    ported yet."""
+    exports the JAX package's names lazily, the serving classes
+    included."""
     import tpu_pose_torch
     from tpu_pose_torch import api
     _, test = estimators["float32"]
@@ -264,8 +264,8 @@ def test_module_level_api_and_lazy_exports(estimators, monkeypatch):
                  "estimate_and_fit", "MultiPersonVideoSession",
                  "VideoSession"):
         assert getattr(tpu_pose_torch, name) is getattr(api, name)
-    for name in ("BatchingServer", "PoseHTTPServer"):
-        with pytest.raises(AttributeError, match="A.16"):
-            getattr(tpu_pose_torch, name)
+    from tpu_pose_torch import serving, serving_http
+    assert tpu_pose_torch.BatchingServer is serving.BatchingServer
+    assert tpu_pose_torch.PoseHTTPServer is serving_http.PoseHTTPServer
     with pytest.raises(AttributeError):
         tpu_pose_torch.no_such_name

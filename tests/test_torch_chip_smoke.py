@@ -242,3 +242,76 @@ def test_extras_fit_cfg_is_the_default_schedule_with_the_extras():
         assert got.iters == want.iters and got.opt_pose == want.opt_pose
         assert got.w_interpenetration == (
             chip_smoke.W_INTERPENETRATION if want.opt_pose else 0.0)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_served_batch_launches_match_a_counted_run(counted, monkeypatch,
+                                                   int8):
+    """B1 and B2 per served batch, as serving_b1_per_batch and
+    serving_b2_launches compute them, equal the calls the wrappers count
+    when a BatchingServer runs a burst and a lone request on a small
+    estimator (int8: static scales, int8_min_batch 4, microbatch 4, a
+    small tile budget)."""
+    import numpy as np
+    from tpu_pose_torch import serving
+    from tpu_pose_torch.api import PoseEstimator
+    from tpu_pose_torch.ops import quantize as quantize_lib
+    from tpu_pose_torch.utils.config import FitConfig, StageConfig
+    monkeypatch.setattr(quantize_lib, "TILE_BYTES", 10 ** 6)
+    cfg, _ = _small_multi()
+    frames = chip_smoke.two_people_frames(8, 64, 64, 0)
+    kw = dict(quantize=True, calibration_images=frames[:4],
+              int8_min_batch=4, cpm_microbatch=4) if int8 else {}
+    est = PoseEstimator.create_synthetic(
+        0, cfg, FitConfig(stages=(StageConfig(iters=2),), img_size=64),
+        device="cpu", **kw)
+    with serving.BatchingServer(est, max_batch=8, max_wait_ms=500.0) as srv:
+        for burst in (frames, frames[:1]):
+            for k in counted:
+                counted[k] = 0
+            for f in srv.submit_many(burst):
+                f.result(timeout=120)
+            bucket = len(burst)
+            want = {"soft_argmax": chip_smoke.serving_b1_per_batch(
+                bucket, est.cpm_microbatch)}
+            if int8:
+                want.update(chip_smoke.serving_b2_launches(
+                    est.cpm, cfg, bucket, est.cpm_microbatch,
+                    est.int8_min_batch))
+            assert {k: counted[k] for k in want} == want, bucket
+    assert srv.stats.snapshot()["batches"] == 2
+
+
+def test_cpm_to_coco_round_trips_through_coco_to_cpm():
+    """serving_fit's detector joints: CPM-14 into COCO-17 slots, back
+    through coco_to_cpm, give the same joints except the neck, which
+    becomes the shoulders' midpoint with their lower confidence."""
+    import numpy as np
+    from tpu_pose_torch.models import joints as joints_lib
+    rng = np.random.RandomState(0)
+    j14 = rng.rand(3, 14, 2).astype(np.float32)
+    c14 = rng.rand(3, 14).astype(np.float32)
+    coco, ccoco = chip_smoke.cpm_to_coco(j14, c14)
+    assert coco.shape == (3, 17, 2) and ccoco.shape == (3, 17)
+    back, cback = joints_lib.coco_to_cpm(coco, ccoco)
+    keep = [i for i in range(14) if i != 1]
+    np.testing.assert_array_equal(back[:, keep], j14[:, keep])
+    np.testing.assert_array_equal(cback[:, keep], c14[:, keep])
+    np.testing.assert_allclose(back[:, 1], (j14[:, 2] + j14[:, 5]) / 2)
+    np.testing.assert_array_equal(cback[:, 1],
+                                  np.minimum(c14[:, 2], c14[:, 5]))
+
+
+def test_source_frame_bounds_are_the_letterboxed_network_frame():
+    """Where a served joint can land in a source frame: the network frame
+    mapped back through the letterbox's affine; the frame itself when it
+    is network-sized."""
+    import numpy as np
+    from tpu_pose_torch.ops import preprocess as pre
+    assert np.allclose(chip_smoke.source_frame_bounds(368, 368, 368),
+                       (0, 0, 368, 368))
+    x0, y0, x1, y1 = chip_smoke.source_frame_bounds(480, 640, 368)
+    a = pre.letterbox_affine(480, 640, 368)
+    np.testing.assert_allclose([x0 * a[0] + a[2], y1 * a[1] + a[3]],
+                               [0, 368], atol=1e-4)
+    assert y0 < 0 and y1 > 480 and np.isclose(x0, -a[2] / a[0])

@@ -13,9 +13,8 @@ without CUDA and without an explicit device they raise.
 _API_EXPORTS = ("PoseEstimator", "estimate_2d", "fit_smpl",
                 "estimate_and_fit", "MultiPersonVideoSession",
                 "VideoSession")
-# The JAX package's serving exports, not ported yet.
-_UNPORTED = {"BatchingServer": "ROADMAP.md A.16 (serving)",
-             "PoseHTTPServer": "ROADMAP.md A.16 (serving)"}
+_SERVING_EXPORTS = {"BatchingServer": "serving",
+                    "PoseHTTPServer": "serving_http"}
 
 
 def __getattr__(name):
@@ -23,7 +22,9 @@ def __getattr__(name):
     if name in _API_EXPORTS:
         from tpu_pose_torch import api
         return getattr(api, name)
-    if name in _UNPORTED:
-        raise AttributeError(f"tpu_pose_torch.{name} is not ported yet: "
-                             f"{_UNPORTED[name]}")
+    if name in _SERVING_EXPORTS:
+        import importlib
+        module = importlib.import_module(
+            f"tpu_pose_torch.{_SERVING_EXPORTS[name]}")
+        return getattr(module, name)
     raise AttributeError(name)

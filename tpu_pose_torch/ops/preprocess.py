@@ -122,6 +122,82 @@ def letterbox_image(img: torch.Tensor, size: int,
     return out
 
 
+# -- host twins for the serving front end ------------------------------------
+
+def _resample_weights_np(n_in: int, n_out: int):
+    """Separable triangle-kernel resampling plan, (idx (n_out, k) int64,
+    w (n_out, k) float32), with ``jax.image.resize(method="linear")``'s
+    conventions: half-pixel-center sampling, the kernel widened by
+    1/scale when downscaling, weights renormalized at the borders. The
+    JAX package's host plan, in float64 throughout (``scale`` included),
+    so both packages' host letterboxes agree bit for bit; the native
+    letterbox takes its plan from here."""
+    scale = n_out / n_in
+    support = max(1.0, 1.0 / scale)           # triangle half-width (input px)
+    k = int(np.ceil(2.0 * support)) + 1
+    coords = (np.arange(n_out, dtype=np.float64) + 0.5) / scale - 0.5
+    left = np.floor(coords - support).astype(np.int64) + 1
+    idx = left[:, None] + np.arange(k)[None, :]
+    dist = (idx - coords[:, None]) * min(scale, 1.0)
+    w = np.clip(1.0 - np.abs(dist), 0.0, None)
+    valid = (idx >= 0) & (idx < n_in)
+    w = np.where(valid, w, 0.0)
+    idx = np.clip(idx, 0, n_in - 1)
+    w = w / np.maximum(w.sum(axis=1, keepdims=True), 1e-12)
+    return idx, w.astype(np.float32)
+
+
+def resize_bilinear_np(img: np.ndarray, nh: int, nw: int) -> np.ndarray:
+    """(H, W, C) → (nh, nw, C) float32 on the host, by the plan of
+    :func:`_resample_weights_np` (a gather and a weighted sum per axis)."""
+    x = np.asarray(img, np.float32)
+    iy, wy = _resample_weights_np(x.shape[0], nh)
+    ix, wx = _resample_weights_np(x.shape[1], nw)
+    x = np.einsum("okwc,ok->owc", x[iy], wy)       # rows
+    x = np.einsum("hokc,ok->hoc", x[:, ix], wx)    # cols
+    return x
+
+
+def letterbox_image_np(img: np.ndarray, size: int, fill: float = 128.0):
+    """Host letterbox of one (H, W, C) frame, for the server's per-request
+    preprocessing (mixed resolutions letterbox at submit time, so a batch
+    has one shape on the device). Returns ``(net_image, affine)``:
+    ``net_image`` (size, size, C) in the input's dtype family (uint8
+    stays uint8, a quarter of float32's bytes to the device) and
+    ``affine`` the :func:`letterbox_affine` source → network map.
+
+    A uint8 frame goes through the native letterbox
+    (``tpu_pose_torch/native``: the same plan, within 1 LSB of the numpy
+    path, and it releases the GIL) when that is built; otherwise, and for
+    other dtypes, the numpy path below runs."""
+    img = np.asarray(img)
+    affine = letterbox_affine(img.shape[0], img.shape[1], size)
+    if img.dtype == np.uint8:
+        from tpu_pose_torch import native
+        out = native.letterbox_u8(img, size, fill=int(fill))
+        if out is not None:
+            return out, affine
+    return letterbox_numpy(img, size, fill), affine
+
+
+def letterbox_numpy(img: np.ndarray, size: int,
+                    fill: float = 128.0) -> np.ndarray:
+    """The numpy path of :func:`letterbox_image_np` (the JAX package's,
+    bit for bit): the frame alone, whatever its dtype, never native."""
+    h0, w0, c = img.shape
+    nh, nw, off_y, off_x = _letterbox_geometry(h0, w0, size)
+    r = (resize_bilinear_np(img, nh, nw) if (nh, nw) != (h0, w0)
+         else np.asarray(img, np.float32))
+    if (nh, nw) == (size, size):
+        out = r
+    else:
+        out = np.full((size, size, c), np.float32(fill))
+        out[off_y:off_y + nh, off_x:off_x + nw] = r
+    if img.dtype == np.uint8:
+        out = np.clip(np.round(out), 0, 255).astype(np.uint8)
+    return out
+
+
 def _affine_floats(affine):
     return [float(v) for v in np.asarray(affine, np.float32)]
 

@@ -77,7 +77,20 @@ port's dependencies (torch, numpy). It
    a bucket-1 batch without B2), ``fn="fit_smpl"`` over ``/fit`` with
    COCO-17 joints of planted bodies (``serving_fit``) and
    ``fn="estimate_and_fit_multi"`` (``serving_multi``);
-12. prints a ``{"kernels": [...]}`` line and, last,
+12. trains the CPM at full width, batch 32, with the CLI's schedule and
+   clip (``train_main_path``: the loss on one fixed batch, seconds per
+   step, images/s, the device's busy share, TFLOP/s against the bf16
+   peak, peak memory, the synthetic generator's host seconds per batch;
+   no kernel of the port runs), takes QAT steps, saves and restores the
+   train state bit for bit and serves the exported npz in bf16 and int8
+   (``train_qat_and_resume``), drives the three evaluators over synthetic
+   batches of 32 (``eval_main_path``: ``evaluate_h36m_style`` with the
+   perspective camera, ``evaluate_pckh``, ``evaluate_oks``, and
+   ``evaluate_pckh`` on the int8 estimator, each with its B1/B2 launches
+   as computed, frames/s and a cursor resume), and holds the train step,
+   the optimizer and two evaluators on the GPU against the CPU on a
+   small float32 model (``train_eval_small_reference``);
+13. prints a ``{"kernels": [...]}`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Every phase prints one JSON object per line. Any failed check raises, so
@@ -110,6 +123,7 @@ from tpu_pose_torch import native, serving
 from tpu_pose_torch.api import (MultiPersonVideoSession, PoseEstimator,
                                 VideoSession)
 from tpu_pose_torch.client import PoseClient
+from tpu_pose_torch.data import synthetic
 from tpu_pose_torch.fitting import fit as fit_lib
 from tpu_pose_torch.fitting import init_head as init_head_lib
 from tpu_pose_torch.fitting import interpenetration as interp_lib
@@ -117,6 +131,7 @@ from tpu_pose_torch.fitting import lbfgs as lbfgs_lib
 from tpu_pose_torch.fitting import priors as priors_lib
 from tpu_pose_torch.fitting import temporal, tracking
 from tpu_pose_torch.models import cpm as cpm_lib
+from tpu_pose_torch.models import cpm_train
 from tpu_pose_torch.models import joints as joints_lib
 from tpu_pose_torch.models import smpl as smpl_lib
 from tpu_pose_torch.models import smpl_data as smpl_data_lib
@@ -124,7 +139,9 @@ from tpu_pose_torch.ops import cuda_kernels
 from tpu_pose_torch.ops import preprocess as pre
 from tpu_pose_torch.ops import quantize as quantize_lib
 from tpu_pose_torch.ops import softargmax as softargmax_lib
+from tpu_pose_torch.parallel import eval as eval_lib
 from tpu_pose_torch.serving_http import PoseHTTPServer
+from tpu_pose_torch.utils import checkpoint, profiling, tf_converter
 from tpu_pose_torch.utils.config import CPMConfig, FitConfig, StageConfig
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM bandwidth and
@@ -2428,6 +2445,371 @@ def phase_serving_multi(est: PoseEstimator) -> dict:
     return launches
 
 
+# -- training and dataset-scale evaluation (ROADMAP A.19) ---------------------
+
+TRAIN_BATCH = 32         # tools/train_cpm.py's default --batch
+TRAIN_STEPS = 24         # total_steps of the schedule (warmup: 1 step)
+TRAIN_LR = 1e-4          # the CLI's default --lr
+TRAIN_TIMED = 8          # steps timed on batches made in advance
+TRAIN_PROFILED = 3       # steps under torch.profiler
+TRAIN_GEN_STEPS = 3      # steps with the synthetic generator in the loop
+QAT_STEPS = 3
+EVAL_BATCH = 32
+EVAL_BATCHES = 2
+CKPT_DIR = "build/chip_smoke_train"   # gitignored; removed at the end
+# The CPU tests' tolerances (tests/test_torch_cpm_train.py,
+# tests/test_torch_eval.py), for the GPU-against-CPU phase.
+LOSS_RTOL = 1e-5
+GRAD_TOL = 1e-4          # max |Δg| / max |g| per parameter tensor
+PARAM_ATOL = 1e-6        # after optimizer updates given equal gradients
+MM = 1e-3                # 3D metrics of fitted joints (BASELINE budget)
+
+
+def train_losses(cpm, opt_state, opt, batches, cfg: CPMConfig,
+                 fake_quant: bool = False):
+    """Train steps over ``batches``; the loss of each, read on the host
+    (one sync per step). Returns (cpm, opt_state, losses)."""
+    step = cpm_train.make_train_step(cfg, opt, fake_quant=fake_quant)
+    losses = []
+    for b in batches:
+        cpm, opt_state, loss = step(cpm, opt_state, b)
+        losses.append(float(loss))
+    return cpm, opt_state, losses
+
+
+def train_state_equal(cpm_a, state_a, cpm_b, state_b) -> bool:
+    """Parameters, Adam moments and step count equal bit for bit."""
+    if state_a["count"] != state_b["count"]:
+        return False
+    pa, pb = dict(cpm_a.named_parameters()), dict(cpm_b.named_parameters())
+    if pa.keys() != pb.keys() or any(not torch.equal(pa[k], pb[k])
+                                     for k in pa):
+        return False
+    return all(torch.equal(state_a[m][k], state_b[m][k])
+               for m in ("mu", "nu") for k in state_a[m])
+
+
+def int8_matches_fake_quant(qcpm, cpm) -> list:
+    """The layers whose int8 serving weights (dequantized: w_int8 ·
+    w_scale) or bias differ from ``fake_quant_params``' view of the float
+    CPM; empty when all are bit-equal."""
+    view = cpm_train.fake_quant_params(cpm)
+    bad = []
+    for name, layer in qcpm.named_children():
+        deq = (layer.weight_hwio().float() * layer.w_scale).permute(3, 2, 0, 1)
+        if not (torch.equal(deq, view[f"{name}.weight"].detach())
+                and torch.equal(layer.b, view[f"{name}.bias"].detach())):
+            bad.append(name)
+    return bad
+
+
+def eval_metrics_gap(got: dict, want: dict, n2d: int) -> dict:
+    """Per key, |got − want| of two evaluator results, and whether each is
+    within the CPU tests' bounds: frame counts equal, PCKh within one
+    joint's hit of ``n2d`` frames, every 3D metric within 1 mm."""
+    if set(got) != set(want):
+        return {"keys_differ": sorted(set(got) ^ set(want)), "ok": False}
+    gap, ok = {}, True
+    for k, w in want.items():
+        if not isinstance(w, (int, float)):
+            continue
+        gap[k] = abs(got[k] - w)
+        if k.startswith("num_frames"):
+            ok &= gap[k] == 0
+        elif k in ("pckh", "auc"):
+            ok &= gap[k] <= 1.0 / (14 * max(n2d, 1)) + 1e-12
+        else:
+            ok &= gap[k] <= MM
+    return {"gap": gap, "ok": bool(ok)}
+
+
+def phase_train_main_path() -> tuple:
+    """CPM training at full width (CPMConfig(): 368², 6 stages, bf16
+    compute, float32 parameters and Adam moments), batch 32, the CLI's
+    optimizer (warmup-cosine schedule over TRAIN_STEPS, global-norm clip
+    1.0, lr 1e-4), synthetic cpm_train_batches. TRAIN_STEPS steps on one
+    fixed batch: the loss finite at each and lower at the end than at step
+    2 (step 1 has lr 0). Then the step alone on batches made in advance
+    (median seconds per step, images/s), three steps under torch.profiler
+    (the device's busy share), one step under FlopCounterMode (achieved
+    TFLOP/s against the bf16 peak), and steps with the generator in the
+    loop (host seconds per batch). No kernel of the port runs: the train
+    step does not decode, and its convs are cuDNN's."""
+    from torch.profiler import ProfilerActivity, profile
+    model = smpl_data_lib.synthetic_smpl(seed=0, device="cpu")
+    t0 = time.perf_counter()
+    made = list(synthetic.cpm_train_batches(
+        model, TRAIN_BATCH, 1 + TRAIN_TIMED, MAIN_CPM, seed=0))
+    gen_s = (time.perf_counter() - t0) / len(made)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    cpm, opt_state, opt = cpm_train.init_train_state(
+        0, MAIN_CPM, lr=TRAIN_LR, total_steps=TRAIN_STEPS, device=DEVICE)
+    cpm, opt_state, losses = train_losses(
+        cpm, opt_state, opt, [made[0]] * TRAIN_STEPS, MAIN_CPM)
+    check(all(np.isfinite(losses)), f"train losses finite: {losses}")
+    check(losses[1] == losses[0] and losses[-1] < losses[1],
+          f"fixed-batch loss: step 1 {losses[0]}, step 2 {losses[1]}, "
+          f"end {losses[-1]}")
+    # The step alone (a fresh schedule: the fixed-batch run used it up).
+    opt_t = cpm_train.TrainOptimizer(TRAIN_LR, 10 * TRAIN_STEPS)
+    train_step = cpm_train.make_train_step(MAIN_CPM, opt_t)
+    state = {"opt": opt_t.init(dict(cpm.named_parameters()))}
+
+    def step(b):
+        _, state["opt"], loss = train_step(cpm, state["opt"], b)
+        return loss
+
+    seconds = [host_s(lambda b=b: step(b)) for b in made[1:]]
+    step_s = statistics.median(seconds[1:])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in made[1:1 + TRAIN_PROFILED]:
+            step(b)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    rows = kernel_rows(prof.key_averages())
+    device_s = sum(r[2] for r in rows) / 1e6
+    flops = profiling.cost_analysis(step, made[1])["flops"]
+    util = profiling.utilization(step_s, {"flops": flops},
+                                 peak="flops_bf16")
+    # With the generator in the loop, as train_cpm --synthetic runs it.
+    gen = synthetic.cpm_train_batches(model, TRAIN_BATCH, TRAIN_GEN_STEPS,
+                                      MAIN_CPM, seed=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in gen:
+        step(b)
+    torch.cuda.synchronize()
+    loop_s = (time.perf_counter() - t0) / TRAIN_GEN_STEPS
+    launches = read_counts()
+    check(all(n == 0 for n in launches.values()),
+          f"the train step launched {launches}")
+    emit({"phase": "train_main_path", "batch": TRAIN_BATCH,
+          "total_steps": TRAIN_STEPS, "lr": TRAIN_LR,
+          "losses": losses, "launches": launches,
+          "seconds_per_step": seconds, "median_step_s": step_s,
+          "images_per_s": TRAIN_BATCH / step_s,
+          "profiled_wall_s": wall_s,
+          "device_s": device_s if rows else "not measured",
+          "device_busy_share": (device_s / wall_s if rows
+                                else "not measured"),
+          "device_kernels_per_step": sum(r[1] for r in rows)
+          / TRAIN_PROFILED,
+          "top": [{"name": k[:80], "count": n, "device_ms": t / 1e3}
+                  for k, n, t in rows[:6]],
+          "flops_per_step": flops,
+          "achieved_tflops": util["flops_per_s"] / 1e12,
+          "bf16_peak_share": util["mfu"],
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "host_generator_s_per_batch": gen_s,
+          "generator_in_loop_s_per_step": loop_s,
+          "params": sum(p.numel() for p in cpm.parameters())})
+    return cpm, opt_state, opt, made[0], launches
+
+
+def phase_train_qat_and_resume(cpm, opt_state, opt, batch) -> tuple:
+    """QAT steps on the trained CPM; the train state saved, restored into
+    a fresh CPM and state, equal bit for bit; the weights exported as the
+    CPM npz and loaded with PoseEstimator.from_numpy in bf16 (its
+    heatmaps equal the trained module's forward bit for bit) and with
+    quantize=True (8 calibration frames, cpm_microbatch 16; its int8
+    weights equal fake_quant_params' view bit for bit). Returns the int8
+    estimator for eval_main_path."""
+    import shutil
+    cpm, opt_state, losses = train_losses(
+        cpm, opt_state, opt, [batch] * QAT_STEPS, MAIN_CPM, fake_quant=True)
+    check(all(np.isfinite(losses)), f"QAT losses finite: {losses}")
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    checkpoint.save_train_state(CKPT_DIR, opt_state["count"], cpm,
+                                opt_state)
+    save_s = time.perf_counter() - t0
+    fresh = cpm_lib.init_cpm_params(1, MAIN_CPM, device=DEVICE)
+    t0 = time.perf_counter()
+    step, fresh, fresh_st = checkpoint.restore_train_state(CKPT_DIR, fresh)
+    restore_s = time.perf_counter() - t0
+    check(step == opt_state["count"] and
+          train_state_equal(cpm, opt_state, fresh, fresh_st),
+          "restored train state equals the saved one bit for bit")
+    npz = f"{CKPT_DIR}/cpm.npz"
+    checkpoint.save_cpm_params(npz, cpm)
+    params = tf_converter.load_params_npz(npz)
+    smpl = smpl_data_lib.synthetic_smpl(seed=0, device="cpu").to_numpy()
+    prior = priors_lib.synthetic_gmm_prior(0, device="cpu")
+    prior = {k: getattr(prior, k).numpy()
+             for k in ("means", "precisions", "log_consts")}
+    est = PoseEstimator.from_numpy(params, smpl, prior, MAIN_CPM,
+                                   device=DEVICE)
+    size = MAIN_CPM.input_size
+    images = _frames(MAIN_BATCH, size, size, seed=31)
+    with torch.no_grad():
+        got = est.estimate_2d(images, refine_center=False).heatmaps
+        x = pre.preprocess(torch.from_numpy(images).to(DEVICE), size)
+        cm = pre.gaussian_center_map(size, MAIN_CPM.center_sigma,
+                                     device=DEVICE)
+        want = cpm_lib.cpm_forward(cpm, x, cm.expand(MAIN_BATCH, *cm.shape),
+                                   MAIN_CPM)[-1]
+    hm_err = float((got - want).abs().max())
+    check(hm_err == 0.0, f"bf16 estimator vs trained module heatmaps: "
+          f"{hm_err}")
+    est8 = PoseEstimator.from_numpy(
+        params, smpl, prior, MAIN_CPM, quantize=True,
+        calibration_images=_frames(8, size, size, seed=1),
+        cpm_microbatch=INT8_CHUNK, device=DEVICE)
+    bad = int8_matches_fake_quant(est8.cpm, cpm)
+    check(not bad, f"int8 weights differ from the fake-quant view: {bad}")
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    emit({"phase": "train_qat_and_resume", "qat_losses": losses,
+          "saved_step": step, "save_s": save_s, "restore_s": restore_s,
+          "state_bit_equal": True, "heatmaps_max_abs_err": hm_err,
+          "int8_layers_bit_equal": len(list(est8.cpm.children()))})
+    return est8
+
+
+def eval_launches(per_chunk: dict, batch: int, chunk: int) -> tuple:
+    """Kernel launches per evaluated batch: (bf16 estimator, int8
+    estimator with ``cpm_microbatch=chunk``). B1 runs once per
+    estimate_2d or estimate_and_fit call on the bf16 CPM and once per
+    chunk on the int8 one, whose chunks each make ``per_chunk``'s B2
+    launches (``int8_launches``)."""
+    chunks = -(-batch // chunk)
+    return ({**B2_NONE, "soft_argmax": 1},
+            {"soft_argmax": chunks,
+             **{k: n * chunks for k, n in per_chunk.items()}})
+
+
+def _counted(fn):
+    """(result, launches, seconds) of ``fn()``, counts zeroed before."""
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, read_counts(), time.perf_counter() - t0
+
+
+def phase_eval_main_path(est: PoseEstimator, est8: PoseEstimator,
+                         per_chunk: dict) -> dict:
+    """The three evaluators at full width over EVAL_BATCHES synthetic
+    eval_batches of 32: evaluate_h36m_style (the perspective camera, as
+    eval_h36m --protocol p1 sets it), evaluate_pckh and evaluate_oks with
+    the bf16 estimator, and evaluate_pckh with the int8 one; each with
+    the counts zeroed before and read after (B1: one per batch, one per
+    16-frame chunk on int8; B2: the computed count per chunk × chunks),
+    and its frames per second. Then each resumes from a cursor written
+    after batch 1 and gives the uninterrupted result (the 2D evaluators
+    exactly; the 3D one within 1 mm, as the fit is not bit-reproducible
+    on the card from call to call)."""
+    import os
+    import shutil
+    est_p1 = PoseEstimator(est.cpm, est.smpl_model, est.prior, MAIN_CPM,
+                           FitConfig(camera_model="perspective"),
+                           device=DEVICE)
+    model = smpl_data_lib.synthetic_smpl(seed=0, device="cpu")
+    batches = list(synthetic.eval_batches(model, EVAL_BATCH, EVAL_BATCHES,
+                                          MAIN_CPM))
+    frames = EVAL_BATCH * EVAL_BATCHES
+    bf16, int8 = eval_launches(per_chunk, EVAL_BATCH, INT8_CHUNK)
+    runs = {"h36m": (eval_lib.evaluate_h36m_style, est_p1, bf16),
+            "pckh": (eval_lib.evaluate_pckh, est, bf16),
+            "oks": (eval_lib.evaluate_oks, est, bf16),
+            "pckh_int8": (eval_lib.evaluate_pckh, est8, int8)}
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    os.makedirs(CKPT_DIR)
+    out, launches = {}, {}
+    for name, (evaluate, target, per_batch) in runs.items():
+        res, counts, seconds = _counted(
+            lambda: evaluate(target, iter(batches)))
+        want = {k: n * EVAL_BATCHES for k, n in per_batch.items()}
+        check(counts == want, f"eval {name}: launched {counts}, expected "
+              f"{want}")
+        cursor = os.path.join(CKPT_DIR, f"{name}.json")
+        evaluate(target, iter(batches[:1]), checkpoint_path=cursor,
+                 save_every=1)
+        resumed = evaluate(target, iter(batches), checkpoint_path=cursor,
+                           save_every=1)
+        gap = eval_metrics_gap(resumed, res, frames) if name == "h36m" \
+            else {"gap": None, "ok": resumed == res}
+        check(gap["ok"], f"eval {name}: resumed {resumed} vs {res}")
+        out[name] = {"result": {k: v for k, v in res.items()
+                                if not isinstance(v, dict)},
+                     "launches": counts, "seconds": seconds,
+                     "frames_per_s": frames / seconds,
+                     "resume_gap": gap["gap"]}
+        launches[name] = counts
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    emit({"phase": "eval_main_path", "batch": EVAL_BATCH,
+          "batches": EVAL_BATCHES, "camera_h36m": "perspective", **out})
+    return launches
+
+
+def phase_train_eval_small_reference() -> None:
+    """The GPU path against the CPU path on a small float32 model, TF32
+    off, with the CPU tests' tolerances: one train step's loss and
+    gradients; the optimizer's two scheduled updates given the same
+    gradients; evaluate_h36m_style and evaluate_pckh results."""
+    cpm_cfg, fit_cfg = _small_cfgs()
+    model = smpl_data_lib.synthetic_smpl(seed=0, device="cpu")
+    batch = next(synthetic.cpm_train_batches(model, 2, 1, cpm_cfg, seed=5,
+                                             raw_images=True))
+    out = {}
+    with NoTF32():
+        grads, losses, cpms = {}, {}, {}
+        for dev in ("cpu", DEVICE):
+            cpm = cpm_lib.init_cpm_params(0, cpm_cfg, device=dev)
+            b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+            loss = cpm_train.stage_supervision_loss(
+                cpm, b["images"], b["center_maps"], b["heatmaps"], cpm_cfg)
+            grads[dev] = dict(zip(
+                [n for n, _ in cpm.named_parameters()],
+                torch.autograd.grad(loss, list(cpm.parameters()))))
+            losses[dev], cpms[dev] = float(loss.detach()), cpm
+        loss_rel = abs(losses[DEVICE] - losses["cpu"]) / abs(losses["cpu"])
+        grad_err = max(
+            float((grads[DEVICE][k].cpu() - g).abs().max())
+            / max(float(g.abs().max()), 1e-30)
+            for k, g in grads["cpu"].items())
+        # The same (CPU) gradients through each device's optimizer.
+        param_err = 0.0
+        states = {}
+        opt = cpm_train.TrainOptimizer(1e-3, 10)
+        for dev in ("cpu", DEVICE):
+            params = dict(cpms[dev].named_parameters())
+            st = opt.init(params)
+            for _ in range(2):
+                st = opt.apply(params, {k: g.to(dev) for k, g in
+                                        grads["cpu"].items()}, st)
+            states[dev] = params
+        for k, p in states["cpu"].items():
+            param_err = max(param_err, float(
+                (states[DEVICE][k].detach().cpu() - p.detach()).abs().max()))
+        out["train"] = {"loss_rel_err": loss_rel, "grad_rel_err": grad_err,
+                        "param_max_abs_err": param_err}
+        ok_train = (loss_rel <= LOSS_RTOL and grad_err <= GRAD_TOL
+                    and param_err <= PARAM_ATOL)
+        ests = {dev: PoseEstimator.create_synthetic(0, cpm_cfg, fit_cfg,
+                                                    device=dev)
+                for dev in ("cpu", DEVICE)}
+        bs = list(synthetic.eval_batches(model, 2, 2, cpm_cfg, seed=9))
+        res = {dev: (eval_lib.evaluate_h36m_style(e, iter(bs)),
+                     eval_lib.evaluate_pckh(e, iter(bs)))
+               for dev, e in ests.items()}
+    h36m = eval_metrics_gap(res[DEVICE][0], res["cpu"][0], 4)
+    pckh = eval_metrics_gap(
+        {k: v for k, v in res[DEVICE][1].items() if k in ("pckh", "auc",
+                                                           "num_frames")},
+        {k: v for k, v in res["cpu"][1].items() if k in ("pckh", "auc",
+                                                         "num_frames")}, 4)
+    ok = ok_train and h36m["ok"] and pckh["ok"]
+    emit({"phase": "train_eval_small_reference", **out,
+          "eval_h36m_gap": h36m["gap"], "eval_pckh_gap": pckh["gap"],
+          "ok": ok})
+    check(ok, "GPU vs CPU train step, optimizer and evaluators")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
@@ -2532,6 +2914,13 @@ def main() -> int:
     phase_multi_small_reference()
     phase_fit_extras_small_reference()
 
+    cpm_t, opt_state, opt, batch, t_launches = phase_train_main_path()
+    est_qat8 = phase_train_qat_and_resume(cpm_t, opt_state, opt, batch)
+    del cpm_t, opt_state, opt, batch
+    e_launches = phase_eval_main_path(est, est_qat8, per_chunk)
+    del est_qat8
+    phase_train_eval_small_reference()
+
     q_row = q_timing[QUANT_KERNEL_ROW]
     g_row = g_timing[IM2COL_KERNEL_ROW]
     sa_row = timing["nhwc", MAIN_BATCH]
@@ -2556,6 +2945,11 @@ def main() -> int:
         "launches_serving_int8_path": si_launches["soft_argmax"],
         "launches_serving_multi_path": sm_launches["soft_argmax"],
         "launches_serving_fit_path": sf_launches["soft_argmax"],
+        "launches_train_path": t_launches["soft_argmax"],
+        "launches_eval_h36m_path": e_launches["h36m"]["soft_argmax"],
+        "launches_eval_pckh_path": e_launches["pckh"]["soft_argmax"],
+        "launches_eval_oks_path": e_launches["oks"]["soft_argmax"],
+        "launches_eval_int8_path": e_launches["pckh_int8"]["soft_argmax"],
         "max_abs_err": err["max_abs_err"],
         "ms": sa_row["ms"], "plain_ms": sa_row["plain_ms"],
         "bound_ms": sa_row["bound_ms"], "bound_by": sa_row["bound_by"],
@@ -2570,6 +2964,8 @@ def main() -> int:
         "launches_video_int8_path": v8_launches["quantize_act"],
         "launches_multi_int8_path": mi_launches["quantize_act"],
         "launches_serving_int8_path": si_launches["quantize_act"],
+        "launches_eval_int8_path": e_launches["pckh_int8"]["quantize_act"],
+        "launches_train_path": t_launches["quantize_act"],
         "max_abs_err": q_err["max_abs_err"],
         "ms": q_row["ms"], "plain_ms": q_row["plain_ms"],
         "bound_ms": q_row["bound_ms"], "bound_by": q_row["bound_by"],
@@ -2584,6 +2980,9 @@ def main() -> int:
         "launches_video_int8_path": v8_launches["quantize_im2col"],
         "launches_multi_int8_path": mi_launches["quantize_im2col"],
         "launches_serving_int8_path": si_launches["quantize_im2col"],
+        "launches_eval_int8_path": e_launches["pckh_int8"][
+            "quantize_im2col"],
+        "launches_train_path": t_launches["quantize_im2col"],
         "max_abs_err": g_err["max_abs_err"],
         "ms": g_row["ms"], "plain_ms": g_row["plain_ms"],
         "bound_ms": g_row["bound_ms"], "bound_by": g_row["bound_by"],

@@ -315,3 +315,93 @@ def test_source_frame_bounds_are_the_letterboxed_network_frame():
     np.testing.assert_allclose([x0 * a[0] + a[2], y1 * a[1] + a[3]],
                                [0, 368], atol=1e-4)
     assert y0 < 0 and y1 > 480 and np.isclose(x0, -a[2] / a[0])
+
+
+# -- training and evaluation phases ------------------------------------------
+
+def _small_train():
+    from tpu_pose_torch.data import synthetic
+    from tpu_pose_torch.models import cpm_train, smpl_data
+    cfg, _ = _small_multi()
+    model = smpl_data.synthetic_smpl(seed=0, num_verts=300, device="cpu")
+    batch = next(synthetic.cpm_train_batches(model, 2, 1, cfg, seed=0,
+                                             raw_images=True))
+    cpm, st, opt = cpm_train.init_train_state(0, cfg, lr=1e-3,
+                                              total_steps=10, device="cpu")
+    return cfg, batch, cpm, st, opt
+
+
+def test_train_step_launches_no_kernel(counted):
+    """train_main_path's check: a train step (loss, gradients, optimizer)
+    calls no kernel wrapper; its first scheduled step leaves the loss."""
+    cfg, batch, cpm, st, opt = _small_train()
+    cpm, st, losses = chip_smoke.train_losses(cpm, st, opt, [batch] * 3,
+                                              cfg, fake_quant=True)
+    assert all(n == 0 for n in counted.values())
+    assert losses[1] == losses[0] and st["count"] == 3
+
+
+def test_train_state_equal_and_int8_view_helpers():
+    """train_state_equal sees a change in any moment; the int8 weights
+    quantize_params makes equal the fake-quant view, and a changed int8
+    weight is named."""
+    import copy
+    from tpu_pose_torch.models import cpm as cpm_lib
+    cfg, batch, cpm, st, opt = _small_train()
+    cpm, st, _ = chip_smoke.train_losses(cpm, st, opt, [batch] * 2, cfg)
+    twin, twin_st = copy.deepcopy(cpm), copy.deepcopy(st)
+    assert chip_smoke.train_state_equal(cpm, st, twin, twin_st)
+    twin_st["nu"]["Mconv5_stage2.bias"][0] += 1e-9
+    assert not chip_smoke.train_state_equal(cpm, st, twin, twin_st)
+    q = cpm_lib.quantize_params(cpm)
+    assert chip_smoke.int8_matches_fake_quant(q, cpm) == []
+    with torch.no_grad():
+        q.conv3_stage1.w_int8[0, 0] += 1
+    assert chip_smoke.int8_matches_fake_quant(q, cpm) == ["conv3_stage1"]
+
+
+def test_eval_metrics_gap_bounds():
+    want = {"mpjpe_p1": 0.10, "pckh": 0.5, "num_frames": 4, "per": {}}
+    ok = chip_smoke.eval_metrics_gap(
+        {"mpjpe_p1": 0.1009, "pckh": 0.5 + 1 / 56, "num_frames": 4,
+         "per": {}}, want, 4)
+    assert ok["ok"] and set(ok["gap"]) == {"mpjpe_p1", "pckh", "num_frames"}
+    for bad in ({"mpjpe_p1": 0.1011}, {"pckh": 0.5 + 2 / 56},
+                {"num_frames": 5}):
+        assert not chip_smoke.eval_metrics_gap({**want, **bad}, want,
+                                               4)["ok"]
+    assert not chip_smoke.eval_metrics_gap({"pckh": 0.5}, want, 4)["ok"]
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_eval_launches_match_a_counted_run(counted, monkeypatch, int8):
+    """eval_main_path's expected counts: evaluate_pckh over two batches of
+    4 on a small estimator (int8: static scales, cpm_microbatch 2, a
+    small tile budget) calls the wrappers eval_launches × 2 times; so
+    does evaluate_h36m_style on the bf16 one."""
+    from tpu_pose_torch.api import PoseEstimator
+    from tpu_pose_torch.data import synthetic
+    from tpu_pose_torch.ops import quantize as quantize_lib
+    from tpu_pose_torch.parallel import eval as eval_lib
+    from tpu_pose_torch.utils.config import FitConfig, StageConfig
+    monkeypatch.setattr(quantize_lib, "TILE_BYTES", 10 ** 6)
+    cfg, _ = _small_multi()
+    frames = chip_smoke.two_people_frames(4, 64, 64, 0)
+    kw = dict(quantize=True, calibration_images=frames, int8_min_batch=2,
+              cpm_microbatch=2) if int8 else {}
+    est = PoseEstimator.create_synthetic(
+        0, cfg, FitConfig(stages=(StageConfig(iters=2),), img_size=64),
+        device="cpu", **kw)
+    batches = list(synthetic.eval_batches(est.smpl_model, 4, 2, cfg))
+    per_chunk = chip_smoke.int8_launches(est.cpm, cfg, 2, False) \
+        if int8 else {}
+    bf16, q8 = chip_smoke.eval_launches(per_chunk, 4, 2)
+    runs = [(eval_lib.evaluate_pckh, q8 if int8 else bf16)]
+    if not int8:
+        runs.append((eval_lib.evaluate_h36m_style, bf16))
+    for evaluate, per_batch in runs:
+        for k in counted:
+            counted[k] = 0
+        evaluate(est, iter(batches))
+        assert {k: counted[k] for k in per_batch} == {
+            k: 2 * n for k, n in per_batch.items()}

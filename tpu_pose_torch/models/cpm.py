@@ -90,7 +90,8 @@ def _layer_defs(cfg: CPMConfig):
 class CPM(nn.Module):
     """The CPM's conv layers, one ``nn.Conv2d`` per Caffe layer name.
     ``forward`` is :func:`cpm_forward` (NHWC in, per-stage NHWC beliefs
-    out) with this module's config."""
+    out) with this module's config, or with ``cfg`` (its compute dtype,
+    for instance) when given."""
 
     def __init__(self, cfg: CPMConfig = CPMConfig()):
         super().__init__()
@@ -98,8 +99,8 @@ class CPM(nn.Module):
         for name, k, cin, cout, _ in _layer_defs(cfg):
             self.add_module(name, nn.Conv2d(cin, cout, k, padding=k // 2))
 
-    def forward(self, images, center_map=None, num_stages=None):
-        return cpm_forward(self, images, center_map, self.cfg,
+    def forward(self, images, center_map=None, num_stages=None, cfg=None):
+        return cpm_forward(self, images, center_map, cfg or self.cfg,
                            num_stages=num_stages)
 
 

@@ -128,3 +128,26 @@ def mpii_to_cpm(joints16, conf16):
     idx = torch.as_tensor(MPII16_TO_CPM, dtype=torch.long,
                           device=joints16.device)
     return joints16.index_select(-2, idx), conf16.index_select(-1, idx)
+
+
+# Human3.6M 17-joint evaluation convention.
+H36M_JOINT_NAMES = [
+    "pelvis", "r_hip", "r_knee", "r_ankle", "l_hip", "l_knee", "l_ankle",
+    "spine", "neck", "head", "site", "l_shoulder", "l_elbow", "l_wrist",
+    "r_shoulder", "r_elbow", "r_wrist",
+]
+# The SMPL joints closest to the H3.6M convention (spine → spine2,
+# head and site → head).
+H36M_TO_SMPL = np.array(
+    [0, 2, 5, 8, 1, 4, 7, 6, 12, 15, 15, 16, 18, 20, 17, 19, 21],
+    dtype=np.int32)
+
+
+def select_h36m_joints(joints3d_smpl24):
+    """(..., 24, 3) SMPL joints → (..., 17, 3) in the H3.6M order, for a
+    tensor (on its device) or a numpy array."""
+    if isinstance(joints3d_smpl24, torch.Tensor):
+        idx = torch.as_tensor(H36M_TO_SMPL, dtype=torch.long,
+                              device=joints3d_smpl24.device)
+        return joints3d_smpl24.index_select(-2, idx)
+    return np.asarray(joints3d_smpl24)[..., H36M_TO_SMPL, :]

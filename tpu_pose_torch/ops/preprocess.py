@@ -294,3 +294,27 @@ def downsample_center_map(cmap: torch.Tensor, stride: int = 8
     x = F.pad(x, (px[0], px[1], py[0], py[1]))
     y = F.avg_pool2d(x, 9, stride, divisor_override=81)
     return y.permute(0, 2, 3, 1).reshape(*lead, *y.shape[-2:], 1)
+
+
+def paint_heatmaps(joints_px: torch.Tensor, size: int, stride: int,
+                   sigma_px: float, num_channels: int) -> torch.Tensor:
+    """Ground-truth belief maps from joint pixels (training and tests):
+    one Gaussian per part at heatmap resolution (cell-corner grid,
+    x = col·stride), zero maps up to ``num_channels − 1``, then the
+    background channel 1 − max over the parts.
+
+    joints_px: (P, 2) in input-pixel coords. Returns (H, H, num_channels)
+    float32 on ``joints_px``'s device."""
+    joints_px = torch.as_tensor(joints_px, dtype=torch.float32)
+    hm = size // stride
+    grid = torch.arange(hm, dtype=torch.float32,
+                        device=joints_px.device) * stride
+    dy = grid[:, None, None] - joints_px[None, None, :, 1]   # (hm, 1, P)
+    dx = grid[None, :, None] - joints_px[None, None, :, 0]   # (1, hm, P)
+    d2 = dx * dx + dy * dy
+    parts = torch.exp(-d2 / (2.0 * sigma_px * sigma_px))     # (hm, hm, P)
+    bg = 1.0 - parts.amax(dim=-1, keepdim=True)
+    pad = num_channels - joints_px.shape[0] - 1
+    if pad > 0:
+        parts = torch.cat([parts, parts.new_zeros((hm, hm, pad))], dim=-1)
+    return torch.cat([parts, bg], dim=-1)

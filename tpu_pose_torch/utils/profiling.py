@@ -94,20 +94,24 @@ def cost_analysis(fn: Callable, *args) -> Dict[str, float]:
     return {"flops": float(counter.get_total_flops())}
 
 
-# Published peaks per card (NVIDIA H100 SXM data sheet, dense): float32
-# outside the tensor cores and HBM bandwidth, at the full 700 W limit.
+# Published peaks per card (NVIDIA H100 SXM data sheet, dense rates
+# without sparsity): float32 outside the tensor cores, bf16 on the tensor
+# cores (989 TFLOP/s) and HBM bandwidth, at the full 700 W limit.
 PEAKS = {
-    "h100 sxm": {"flops_f32": 67e12, "hbm_bytes_per_s": 3.35e12},
+    "h100 sxm": {"flops_f32": 67e12, "flops_bf16": 989e12,
+                 "hbm_bytes_per_s": 3.35e12},
 }
 
 
 def utilization(seconds_per_call: float, cost: Dict[str, float],
-                chip: str = "h100 sxm") -> Dict[str, float]:
+                chip: str = "h100 sxm",
+                peak: str = "flops_f32") -> Dict[str, float]:
     """Achieved FLOP/s and bytes/s of a timed call with ``cost`` (from
     :func:`cost_analysis`; ``"bytes accessed"`` when the caller knows
-    them), and their fractions of ``PEAKS[chip]``'s float32 rate and HBM
+    them), and their fractions of ``PEAKS[chip]``'s ``peak`` rate
+    (``"flops_f32"`` or ``"flops_bf16"``) as ``mfu`` and of its HBM
     bandwidth."""
-    peak = PEAKS[chip]
+    peaks = PEAKS[chip]
     flops = float(cost.get("flops", 0.0))
     byts = float(cost.get("bytes accessed", 0.0))
     out = {
@@ -115,6 +119,6 @@ def utilization(seconds_per_call: float, cost: Dict[str, float],
         "hbm_bytes_per_s": (byts / seconds_per_call
                             if seconds_per_call else 0.0),
     }
-    out["mfu"] = out["flops_per_s"] / peak["flops_f32"]
-    out["hbm_frac"] = out["hbm_bytes_per_s"] / peak["hbm_bytes_per_s"]
+    out["mfu"] = out["flops_per_s"] / peaks[peak]
+    out["hbm_frac"] = out["hbm_bytes_per_s"] / peaks["hbm_bytes_per_s"]
     return out

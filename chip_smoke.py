@@ -90,7 +90,22 @@ port's dependencies (torch, numpy). It
    as computed, frames/s and a cursor resume), and holds the train step,
    the optimizer and two evaluators on the GPU against the CPU on a
    small float32 model (``train_eval_small_reference``);
-13. prints a ``{"kernels": [...]}`` line and, last,
+13. times the hard synthetic generator at 368² (``hard_data_check``),
+   runs ``tools/selfcheck_e2e``'s sections 1–5 at full width with the
+   depth cut (``selfcheck_main_path``: the easy and the hard CPM trained
+   on the card, the fused evaluations, the fitted prior, the init head,
+   the video fits, two-person frames, the whole hard ladder with
+   calibrated int8 at int8_min_batch 0, hard multi-person stills, the
+   tracked crossing video, the empty-frame operating point, k = 3
+   stills; every section's B1/B2 launches against the computed counts),
+   ``tools/track_bench`` on its hard weights (crossing, and enterleave
+   through the session windows), a two-row ``tools/hard_sweep``, the demo
+   and ``tools/profile_entry`` (``tools_main_path``), and holds the
+   ladder and track_bench's metrics on the GPU against the CPU on a small
+   float32 model (``hard_small_reference``); the selfcheck's sections 9
+   and 10 write JPEGs through PIL, which the card's machine lacks, and
+   run in the CPU tests only;
+14. prints a ``{"kernels": [...]}`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Every phase prints one JSON object per line. Any failed check raises, so
@@ -106,12 +121,15 @@ import copy
 import dataclasses
 import importlib.util
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
 import threading
 import time
 import warnings
+from unittest import mock
 
 import numpy as np
 import torch
@@ -123,7 +141,7 @@ from tpu_pose_torch import native, serving
 from tpu_pose_torch.api import (MultiPersonVideoSession, PoseEstimator,
                                 VideoSession)
 from tpu_pose_torch.client import PoseClient
-from tpu_pose_torch.data import synthetic
+from tpu_pose_torch.data import synthetic, synthetic_hard
 from tpu_pose_torch.fitting import fit as fit_lib
 from tpu_pose_torch.fitting import init_head as init_head_lib
 from tpu_pose_torch.fitting import interpenetration as interp_lib
@@ -141,7 +159,11 @@ from tpu_pose_torch.ops import quantize as quantize_lib
 from tpu_pose_torch.ops import softargmax as softargmax_lib
 from tpu_pose_torch.parallel import eval as eval_lib
 from tpu_pose_torch.serving_http import PoseHTTPServer
-from tpu_pose_torch.utils import checkpoint, profiling, tf_converter
+from tpu_pose_torch.tools import (demo, hard_sweep, profile_entry,
+                                  selfcheck_e2e, track_bench)
+from tpu_pose_torch.utils import checkpoint
+from tpu_pose_torch.utils import metrics as metrics_lib
+from tpu_pose_torch.utils import profiling, tf_converter
 from tpu_pose_torch.utils.config import CPMConfig, FitConfig, StageConfig
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM bandwidth and
@@ -2081,6 +2103,10 @@ SERVE_FIELDS = ("joints2d", "conf", "theta", "beta", "cam", "joints3d",
                 "energy")
 SERVE_LOAD_HW = ((368, 368), (480, 640), (720, 1280))
 SERVE_LOAD_FRAMES = 48
+# The loads with the readiness check off run on the first half of the
+# frames: they take ≈ 2.5× the time per frame of the loads with it on
+# (17 small batches), and the script's time limit binds.
+SERVE_LOAD_FRAMES_OFF = 24
 SERVE_CLIENTS = 8                  # client threads of the load
 LETTERBOX_HW = ((480, 640), (720, 1280), (1080, 1920))
 # COCO-17 slot of each CPM-14 joint (head → nose; the neck has no COCO
@@ -2264,7 +2290,8 @@ def phase_serving_main_path(est: PoseEstimator) -> dict:
     half the capacity (8 frames per direct call; requests arrive during
     a launch), then from 16 closed-loop threads (a full batch queues
     during each launch), each with the pipeline's readiness check on and
-    off, beside a direct call's seconds at bucket 8."""
+    (on the first SERVE_LOAD_FRAMES_OFF frames) off, beside a direct
+    call's seconds at bucket 8."""
     size = est.cpm_cfg.input_size
     frames = _frames(SERVE_BATCH, size, size, seed=21)
     direct, direct_s = _timed_calls(lambda: est.estimate_and_fit(frames), 3)
@@ -2296,7 +2323,9 @@ def phase_serving_main_path(est: PoseEstimator) -> dict:
           f"joints3d {mpjpe_mm} mm")
     # Open loop at half the capacity a direct call measures on this host.
     open_rate = 0.5 * SERVE_BATCH / statistics.median(direct_s)
-    loads = [_serve_load(est, _load_frames(100), clients, on, rate)
+    loads = [_serve_load(est, _load_frames(100)[
+                 :SERVE_LOAD_FRAMES if on else SERVE_LOAD_FRAMES_OFF],
+                 clients, on, rate)
              for clients, rate in ((SERVE_CLIENTS, 0.0),
                                    (SERVE_CLIENTS, open_rate),
                                    (2 * SERVE_CLIENTS, 0.0))
@@ -2618,7 +2647,6 @@ def phase_train_qat_and_resume(cpm, opt_state, opt, batch) -> tuple:
     quantize=True (8 calibration frames, cpm_microbatch 16; its int8
     weights equal fake_quant_params' view bit for bit). Returns the int8
     estimator for eval_main_path."""
-    import shutil
     cpm, opt_state, losses = train_losses(
         cpm, opt_state, opt, [batch] * QAT_STEPS, MAIN_CPM, fake_quant=True)
     check(all(np.isfinite(losses)), f"QAT losses finite: {losses}")
@@ -2703,8 +2731,6 @@ def phase_eval_main_path(est: PoseEstimator, est8: PoseEstimator,
     after batch 1 and gives the uninterrupted result (the 2D evaluators
     exactly; the 3D one within 1 mm, as the fit is not bit-reproducible
     on the card from call to call)."""
-    import os
-    import shutil
     est_p1 = PoseEstimator(est.cpm, est.smpl_model, est.prior, MAIN_CPM,
                            FitConfig(camera_model="perspective"),
                            device=DEVICE)
@@ -2808,6 +2834,432 @@ def phase_train_eval_small_reference() -> None:
           "eval_h36m_gap": h36m["gap"], "eval_pckh_gap": pckh["gap"],
           "ok": ok})
     check(ok, "GPU vs CPU train step, optimizer and evaluators")
+
+
+# -- the hard synthetic set and the tools that run on it (ROADMAP A.19b) ------
+
+SC_OUT = "build/chip_smoke_selfcheck"     # gitignored; removed at the end
+SWEEP_OUT = "build/chip_smoke_sweep"
+DEMO_OUT = "build/chip_smoke_demo"
+# selfcheck_e2e's flags at full width (CPMConfig()), depth cut: 60 + 60
+# train steps at batch 16, a hard pool of 4 batches, 16 eval, hard eval
+# and video frames.
+SC_ARGS = ["--steps", "60", "--hard_steps", "60", "--train_batch", "16",
+           "--hard_pool", "4", "--eval_frames", "16",
+           "--hard_eval_frames", "16", "--video_frames", "16"]
+# Depths the tool fixes in its code, cut: the easy pool (16 → 4 batches),
+# the prior's EM corpus (4000 → 1000 poses: EM is host float64, 30 s at
+# 4000), the init head's steps (2000 → 300, as fit_extras_main_path) and
+# the operating point's frames (32 → 8, 4 per count call).
+SC_DEPTH = {"EASY_POOL": 4, "PRIOR_CORPUS": 1000, "HEAD_STEPS": HEAD_STEPS,
+            "EMPTY_FRAMES": 8, "COUNT_FRAMES": 4}
+# results.json keys of sections 1–5 (sections 9 and 10 write JPEGs through
+# PIL, which the card's machine lacks; the deployment artifact waits for
+# export, ROADMAP A.17).
+SC_KEYS = ("train_final_loss", "fused_random_weights",
+           "fused_trained_weights", "fused_fitted_prior",
+           "init_head_final_loss", "fused_meanpose_init",
+           "fused_learned_init", "video_temporal", "video_independent",
+           "video_smooth", "multi_person", "hard_train_final_loss",
+           *(rung[0] for rung in selfcheck_e2e.HARD_LADDER),
+           "scale_robustness", "hard_multi_person", "hard_multi_video",
+           "empty_frame_operating_point", "hard_multi_person_k3")
+HARD_DATA_FRAMES = 32
+TRACK_FRAMES = 26                  # track_bench's default --frames
+SWEEP_GRID = "plain:20:2:0.0,union:20:2:0.35:0:0:1:2"
+PROFILE_CALLS = 2 + 2 + 1          # Timer warm-up, timed iterations, FLOPs
+# demo --synthetic frames: the single-person demo rasterizes a mesh overlay
+# per frame in host numpy (≈ 6 s a frame at 368²), so it runs 2 frames;
+# --multi, which draws skeletons only, 8.
+DEMO_FRAMES, DEMO_MULTI_FRAMES = 2, 8
+
+
+def front_end_b1_launches(refine_center: bool = False,
+                          refine_scale: bool = False, flip_tta: bool = False,
+                          scale_tta: tuple = (), scale_iters: int = 1,
+                          **_) -> int:
+    """B1's launches in one ``estimate_2d_from_images`` call: per pass the
+    final decode, plus the β = 30 geometry decode of refine_center or of
+    each refine_scale round; a pass per TTA scale (other than 1) and all
+    mirrored with flip TTA."""
+    per_pass = 1 + (max(1, scale_iters) if refine_scale
+                    else int(refine_center))
+    views = 1 + sum(float(s) != 1.0 for s in scale_tta)
+    return per_pass * views * (2 if flip_tta else 1)
+
+
+def video_multi_b1_launches(hint_passes: int = 1, hint_crop=False,
+                            temporal_hints: bool = True) -> int:
+    """B1's launches in one ``estimate_and_fit_video_multi`` call (or
+    window): the NMS pass, then per hint pass the hinted decode and, with
+    ``hint_crop``, its hint-centered crop."""
+    if not temporal_hints:
+        return 1
+    return 1 + hint_passes * (2 if hint_crop else 1)
+
+
+# B1 per selfcheck section, from the calls each makes: estimate_and_fit
+# (one plain pass), estimate_2d, estimate_and_fit_multi; the crossing video
+# with two hint passes; the operating point's two estimate_2d_multi calls
+# and six counted multi calls. No section but the ladder runs B2.
+SELFCHECK_B1 = {
+    "train_easy": 0, "fused_section": 2, "fitted_prior_section": 1,
+    "init_head_section": 2, "video_section": 1,
+    "multi_section": 2 * multi_b1_launches(False, False),
+    "hard_weights": 0,
+    "hard_multi_section": multi_b1_launches(False, False),
+    "hard_video_section": video_multi_b1_launches(hint_passes=2),
+    "empty_frame_section": (2 + 6) * multi_b1_launches(False, False),
+    "hard_k3_section": multi_b1_launches(False, False)}
+
+
+def _sum_counts(counts) -> dict:
+    """Launch counts added up by kernel."""
+    total = dict.fromkeys(COUNTED, 0)
+    for c in counts:
+        for k, n in c.items():
+            total[k] += n
+    return total
+
+
+def _finite_tree(x) -> bool:
+    if isinstance(x, dict):
+        return all(_finite_tree(v) for v in x.values())
+    if isinstance(x, (bool, int)):
+        return True
+    return bool(np.isfinite(x))
+
+
+def phase_hard_data_check() -> dict:
+    """The hard generator at full size (368², the full synthetic SMPL):
+    one hard_train_batches batch of 32 with the selfcheck's recipe
+    (distractors 0.35 × 1..2, union stage-1 targets, flips 0.5), its host
+    seconds and schema: uint8 frames, center maps, targets and union
+    targets of the model's shapes, finite, the union ≥ the target on
+    every joint channel."""
+    model = smpl_data_lib.synthetic_smpl(seed=0, device="cpu")
+    size, cfg = MAIN_CPM.input_size, MAIN_CPM
+    t0 = time.perf_counter()
+    b = next(synthetic_hard.hard_train_batches(
+        model, HARD_DATA_FRAMES, 1, cfg, seed=0, raw_images=True,
+        distractor_prob=0.35, max_distractors=2, union_stage1=True))
+    seconds = time.perf_counter() - t0
+    h = size // cfg.stride
+    want = {"images": ((HARD_DATA_FRAMES, size, size, 3), np.uint8),
+            "center_maps": ((HARD_DATA_FRAMES, size, size, 1), np.float32),
+            "heatmaps": ((HARD_DATA_FRAMES, h, h, cfg.num_joints + 1),
+                         np.float32),
+            "heatmaps_stage1": ((HARD_DATA_FRAMES, h, h, cfg.num_joints + 1),
+                                np.float32)}
+    got = {k: (v.shape, v.dtype) for k, v in b.items()}
+    check(set(got) == set(want) and all(
+        got[k][0] == s and got[k][1] == d for k, (s, d) in want.items()),
+        f"hard batch schema {got}")
+    check(all(np.isfinite(b[k]).all() for k in want if k != "images"),
+          "hard batch finite")
+    union_ok = bool((b["heatmaps_stage1"][..., :-1]
+                     >= b["heatmaps"][..., :-1] - 1e-6).all())
+    check(union_ok, "union stage-1 targets ≥ the target's")
+    emit({"phase": "hard_data_check", "frames": HARD_DATA_FRAMES,
+          "host_seconds": seconds,
+          "host_seconds_per_frame": seconds / HARD_DATA_FRAMES,
+          "schema": {k: [list(s), np.dtype(d).name]
+                     for k, (s, d) in got.items()},
+          "union_frames": int((np.abs(b["heatmaps_stage1"]
+                                      - b["heatmaps"]).max((1, 2, 3))
+                               > 0).sum())})
+    return {"seconds": seconds}
+
+
+def phase_selfcheck_main_path() -> tuple:
+    """selfcheck_e2e's sections 1–5 at full width through the tool's
+    section functions, in its order (SC_ARGS, SC_DEPTH): the easy and the
+    hard CPM trained on the card, the fused eval with random and trained
+    weights, the fitted GMM-8 prior, the init head, the three video fits,
+    two-person frames, the whole hard ladder (calibrated int8 at
+    int8_min_batch 0 included), hard multi-person stills, the tracked
+    crossing video, the empty-frame operating point, k = 3 stills. Each
+    section (each ladder rung) with the counts zeroed before and read
+    after: B1 as SELFCHECK_B1 and front_end_b1_launches compute, B2 only on
+    the int8 rung, as int8_launches computes. Checks every key of SC_KEYS
+    finite and the hard loss falling (the mean of the last pool cycle
+    below the first's). Returns (the hard weights' npz, launches by
+    section)."""
+    shutil.rmtree(SC_OUT, ignore_errors=True)
+    sc = selfcheck_e2e
+    seconds, launches = {}, {}
+    with mock.patch.multiple(sc, **SC_DEPTH):
+        run = sc.Run(sc.parse_args(SC_ARGS + ["--out", SC_OUT,
+                                              "--device", DEVICE]))
+
+        def section(name, fn, *args, b1=None, b2=None, **kw):
+            out, counts, sec = _counted(lambda: fn(run, *args, **kw))
+            want = {**B2_NONE, **(b2 or {}),
+                    "soft_argmax": SELFCHECK_B1[name] if b1 is None else b1}
+            check(counts == want, f"selfcheck {name}: launched {counts}, "
+                  f"expected {want}")
+            seconds[name], launches[name] = sec, counts
+            return out
+
+        rand_cpm, cpm = section("train_easy", sc.train_easy)
+        ex = sc.eval_examples(run)
+        section("fused_section", sc.fused_section, rand_cpm, cpm, ex)
+        prior = section("fitted_prior_section", sc.fitted_prior_section, cpm,
+                        ex)
+        section("init_head_section", sc.init_head_section, cpm, ex)
+        section("video_section", sc.video_section, cpm, prior)
+        section("multi_section", sc.multi_section, cpm, prior)
+        cpm_h = section("hard_weights", sc.hard_weights)
+        q8 = int8_launches(cpm_lib.quantize_params(cpm_h, None), MAIN_CPM,
+                           run.args.hard_eval_frames, False)
+        for tag, scale_range, truncation, kw in sc.HARD_LADDER:
+            section(tag, sc.hard_eval, tag, cpm_h, prior, scale_range,
+                    truncation, b1=front_end_b1_launches(**kw),
+                    b2=q8 if kw.get("quantize") else None, **kw)
+        sc.scale_robustness(run)
+        mh = sc.hard_multi_examples(run)
+        est_mh = run.estimator(cpm_h, prior=prior,
+                               fit_restarts=run.args.restarts)
+        section("hard_multi_section", sc.hard_multi_section, est_mh, mh)
+        section("hard_video_section", sc.hard_video_section, est_mh)
+        section("empty_frame_section", sc.empty_frame_section, cpm_h, prior,
+                mh)
+        section("hard_k3_section", sc.hard_k3_section, est_mh)
+    res = run.results
+    missing = [k for k in SC_KEYS if k not in res]
+    check(not missing, f"selfcheck results lack {missing}")
+    bad = [k for k in SC_KEYS if not _finite_tree(res[k])]
+    check(not bad, f"selfcheck results not finite: {bad}")
+    hard = run.train_losses["hard"]
+    cycle = run.args.hard_pool
+    first, last = np.mean(hard[:cycle]), np.mean(hard[-cycle:])
+    check(last < first, f"hard training loss falls: first pool cycle "
+          f"{first}, last {last}")
+    ladder = {tag: res[tag] for tag, *_ in sc.HARD_LADDER}
+    emit({"phase": "selfcheck_main_path", "args": SC_ARGS,
+          "depth": SC_DEPTH, "results": res,
+          "ladder": ladder,
+          "train_losses_easy": run.train_losses["easy"][::10],
+          "train_losses_hard": hard[::10],
+          "hard_loss_first_cycle": first, "hard_loss_last_cycle": last,
+          "train_s_per_step": {k: v / (run.args.steps if k == "easy"
+                                       else run.args.hard_steps)
+                               for k, v in run.train_seconds.items()},
+          "section_seconds": seconds, "launches": launches})
+    return f"{SC_OUT}/cpm_weights_hard.npz", launches
+
+
+def phase_track_bench_main_path(weights: str) -> dict:
+    """track_bench on the selfcheck's hard weights at full width: the
+    crossing mode in one call, the enterleave mode through
+    MultiPersonVideoSession windows (--stream), one seed of TRACK_FRAMES
+    frames each; counts zeroed before each mode (B1: 2 per call or
+    window). Checks the result dict's keys; reports identity accuracy and
+    frames per second (the generator's host time included)."""
+    out, launches = {}, {}
+    modes = {"crossing": ([], 1),
+             "enterleave": (["--stream"],
+                            -(-TRACK_FRAMES // track_bench.STREAM_CHUNK))}
+    keys = {"crossing": {"id_acc", "center_err_px", "pa_mpjpe_mm",
+                         "cover40"},
+            "enterleave": {"count_acc", "count_over", "count_under",
+                           "count_err_transition", "count_err_steady",
+                           "id_acc", "seg_consistency_min",
+                           "ab_c_distinct_tracks", "c_track_reuses_b_slot"}}
+    for mode, (extra, calls) in modes.items():
+        res, counts, sec = _counted(lambda: track_bench.main(
+            ["--weights", weights, "--mode", mode, "--seeds", "1",
+             "--frames", str(TRACK_FRAMES), "--device", DEVICE] + extra))
+        want = {**B2_NONE, "soft_argmax": calls * video_multi_b1_launches()}
+        check(counts == want, f"track_bench {mode}: launched {counts}, "
+              f"expected {want}")
+        check(set(res) == {"config", mode}
+              and set(res[mode]) == {"per_seed", "aggregate"}
+              and set(res[mode]["per_seed"][0]) == keys[mode]
+              and set(res[mode]["aggregate"]) == keys[mode],
+              f"track_bench {mode} result keys")
+        out[mode] = {"metrics": res[mode]["per_seed"][0], "seconds": sec,
+                     "frames_per_s": TRACK_FRAMES / sec,
+                     "launches": counts}
+        launches[mode] = counts
+    emit({"phase": "track_bench_main_path", "frames": TRACK_FRAMES,
+          **out})
+    return launches
+
+
+def phase_hard_sweep_main_path() -> dict:
+    """hard_sweep at full width: SWEEP_GRID (a plain row, and a row with
+    distractors, union stage-1 targets and max_d 2), 20 steps each at
+    batch 16 on pools of 2 batches, 16 eval frames; counts zeroed before
+    (B1 per row: the plain and the refine_center + flip evaluations).
+    Checks both rows' scores and that each row's weights npz loads back
+    as the CPM it trained."""
+    shutil.rmtree(SWEEP_OUT, ignore_errors=True)
+    rows, counts, sec = _counted(lambda: hard_sweep.main(
+        ["--grid", SWEEP_GRID, "--train_batch", "16", "--eval_frames", "16",
+         "--out", SWEEP_OUT, "--device", DEVICE]))
+    per_row = front_end_b1_launches() + front_end_b1_launches(
+        refine_center=True, flip_tta=True)
+    want = {**B2_NONE, "soft_argmax": per_row * len(rows)}
+    check(counts == want, f"hard_sweep launched {counts}, expected {want}")
+    grid = hard_sweep.parse_grid(SWEEP_GRID)
+    check(list(rows) == [c["name"] for c in grid], f"sweep rows {list(rows)}")
+    n_params = sum(p.numel() for p in cpm_lib.init_cpm_params(
+        0, MAIN_CPM, device="cpu").parameters())
+    for name, row in rows.items():
+        cpm = cpm_lib.cpm_params_from_numpy(
+            tf_converter.load_params_npz(row["weights"]), MAIN_CPM, DEVICE)
+        check(sum(p.numel() for p in cpm.parameters()) == n_params
+              and all(np.isfinite([row["plain"]["px"], row["rc_flip"]["px"],
+                                   row["final_loss"]])),
+              f"sweep row {name} loads back")
+    emit({"phase": "hard_sweep_main_path", "grid": SWEEP_GRID,
+          "rows": {k: {kk: v[kk] for kk in ("final_loss", "plain",
+                                            "rc_flip")}
+                   for k, v in rows.items()},
+          "seconds": sec, "launches": counts})
+    shutil.rmtree(SWEEP_OUT, ignore_errors=True)
+    return counts
+
+
+def _demo_files(out_dir: str, names: list) -> list:
+    """The names missing from ``out_dir``; an image may have gone to its
+    ``.npy`` fallback (no PIL)."""
+    have = set(os.listdir(out_dir))
+    return [n for n in names if n not in have and f"{n}.npy" not in have]
+
+
+def phase_tools_main_path() -> dict:
+    """demo --synthetic (DEMO_FRAMES; one estimate_and_fit call: fits.npz,
+    a mesh OBJ, skeleton and mesh overlays per frame) and with --multi
+    (DEMO_MULTI_FRAMES; an OBJ per kept person); profile_entry --fn
+    estimate_and_fit --batch 8 --iters 2 and --fn fit_smpl, whose flops
+    must equal FlopCounterMode's count of one call, and --quantize --fn
+    estimate_2d --batch 16 (int8, dynamic scales: B2 per call as
+    int8_launches computes); every run with the counts zeroed before (B1
+    once per call of an image entry point)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    shutil.rmtree(DEMO_OUT, ignore_errors=True)
+    out, launches = {}, {}
+    for name, n, extra in (("demo", DEMO_FRAMES, []),
+                           ("demo_multi", DEMO_MULTI_FRAMES, ["--multi"])):
+        d = f"{DEMO_OUT}/{name}"
+        _, counts, sec = _counted(lambda: demo.main(
+            ["--synthetic", str(n), "--out_dir", d, "--device", DEVICE]
+            + extra))
+        want = {**B2_NONE, "soft_argmax": 1}
+        check(counts == want, f"{name}: launched {counts}, expected {want}")
+        fits = checkpoint.load_fit_results(f"{d}/fits.npz")
+        if extra:
+            mask = fits["person_mask"] > 0
+            names = [f"mesh_{i:03d}_p{k}.obj" for i, k in zip(*np.nonzero(
+                mask))]
+        else:
+            names = [f"{p}_{i:03d}.{e}" for i in range(n)
+                     for p, e in (("mesh", "obj"), ("mesh2d", "png"))]
+        names += [f"pose2d_{i:03d}.png" for i in range(n)] + ["fits.npz"]
+        missing = _demo_files(d, names)
+        check(not missing, f"{name} did not write {missing}")
+        out[name] = {"seconds": sec, "files": len(os.listdir(d)),
+                     "launches": counts}
+        launches[name] = counts
+    shutil.rmtree(DEMO_OUT, ignore_errors=True)
+    est = PoseEstimator.create_synthetic(seed=0, device=DEVICE)
+    est8 = PoseEstimator.create_synthetic(seed=0, quantize=True,
+                                          device=DEVICE)
+    per_call8 = int8_launches(est8.cpm, MAIN_CPM, 16, True)
+    runs = {"estimate_and_fit": (["--batch", "8"], est, 1, {}),
+            "fit_smpl": (["--batch", "8"], est, 0, {}),
+            "estimate_2d_int8": (["--batch", "16", "--quantize"], est8, 1,
+                                 per_call8)}
+    for name, (extra, ref, b1, b2) in runs.items():
+        fn = name.replace("_int8", "")
+        rec, counts, sec = _counted(lambda: profile_entry.main(
+            ["--fn", fn, "--iters", "2", "--device", DEVICE] + extra))
+        want = {**B2_NONE, "soft_argmax": b1 * PROFILE_CALLS,
+                **{k: v * PROFILE_CALLS for k, v in b2.items()}}
+        check(counts == want, f"profile_entry {name}: launched {counts}, "
+              f"expected {want}")
+        inputs = profile_entry.make_inputs(ref, fn, rec["batch"])
+        ref.smpl_model.joint_basis  # built at first use, as in the tool
+        with FlopCounterMode(display=False) as flops:
+            getattr(ref, fn)(*inputs)
+        check(rec["flops"] == flops.get_total_flops(),
+              f"profile_entry {name}: flops {rec['flops']} vs "
+              f"FlopCounterMode {flops.get_total_flops()}")
+        check(set(rec) == {"fn", "batch", "ms_per_call", "items_per_s",
+                           "flops", "flops_per_s", "mfu", "hbm_frac",
+                           "trace_dir"}, f"profile_entry keys {set(rec)}")
+        out[f"profile_{name}"] = {"record": rec, "seconds": sec,
+                                  "launches": counts}
+        launches[f"profile_{name}"] = counts
+    emit({"phase": "tools_main_path", **out})
+    return launches
+
+
+def phase_hard_small_reference() -> None:
+    """The GPU against the CPU on a small float32 model (the tests' small
+    CPM and fit, the full synthetic SMPL and GMM-8, the same random
+    weights; the int8 rung's QuantizedCPM calibrated on the CPU and
+    copied), TF32 off: every selfcheck ladder rung on the same 4 hard
+    frames of 64², within 0.05 px and 1 mm PA-MPJPE (BASELINE.json's
+    budget); and track_bench's _match_metrics of an 8-frame crossing
+    video tracked on each device (NMS radius 32 px: the default covers a
+    64 px frame): equal identity accuracy and cover40, center error
+    within 0.05 px, PA-MPJPE within 1 mm."""
+    cpm_cfg, fit_cfg = _small_cfgs()
+    model = smpl_data_lib.synthetic_smpl(seed=0, device="cpu")
+    cpm = cpm_lib.init_cpm_params(0, cpm_cfg, device="cpu")
+    runs, gaps = {}, {}
+    tb_args = track_bench.parse_args(["--nms_radius", "32"])
+    vid = synthetic_hard.make_hard_multi_video(model, 8, cpm_cfg, seed=0)
+    # The int8 rung's CPM, quantized and calibrated once on the CPU (as in
+    # int8_small_reference): calibrated on each device, the float
+    # calibration forward's summation order moves a static scale by an
+    # ulp, and the fit turns that into ≈ 1.6 mm (measured on the card).
+    cal = synthetic_hard.make_hard_examples(
+        model, selfcheck_e2e.CAL_FRAMES, cpm_cfg, seed=777,
+        scale_range=(0.45, 0.95))["images"]
+    int8 = PoseEstimator(cpm, model, None, cpm_cfg, fit_cfg, device="cpu",
+                         quantize=True, calibration_images=cal,
+                         int8_min_batch=0).cpm
+    with NoTF32():
+        for dev in ("cpu", DEVICE):
+            run = selfcheck_e2e.Run(selfcheck_e2e.parse_args(
+                ["--hard_eval_frames", "4", "--restarts", "2", "--out",
+                 f"{SC_OUT}/small_{dev}", "--device", dev]),
+                setup=(cpm_cfg, fit_cfg, model))
+            prior = priors_lib.synthetic_gmm_prior(0, device=dev)
+            weights = copy.deepcopy(cpm).to(dev)
+            for tag, scale_range, truncation, kw in \
+                    selfcheck_e2e.HARD_LADDER:
+                if kw.get("calibrate"):
+                    kw = {k: v for k, v in kw.items() if k != "calibrate"}
+                    net = copy.deepcopy(int8).to(dev)
+                else:
+                    net = weights
+                selfcheck_e2e.hard_eval(run, tag, net, prior, scale_range,
+                                        truncation, **kw)
+            est = run.estimator(weights, prior=prior, fit_restarts=2)
+            res = track_bench._on_host(track_bench._tracked(
+                est, tb_args, vid["images"], 2))
+            run.results["match"] = track_bench._match_metrics(
+                res, vid["centers"], vid["gt_joints3d"], metrics_lib)
+            runs[dev] = run.results
+    ok = True
+    for tag, *_ in selfcheck_e2e.HARD_LADDER:
+        g, w = runs[DEVICE][tag], runs["cpu"][tag]
+        gaps[tag] = {"px": abs(g["px_err"] - w["px_err"]),
+                     "pa_mm": abs(g["pa_mpjpe_mm"] - w["pa_mpjpe_mm"])}
+        ok &= gaps[tag]["px"] <= 0.05 and gaps[tag]["pa_mm"] <= 1.0
+    g, w = runs[DEVICE]["match"], runs["cpu"]["match"]
+    gaps["match_metrics"] = {k: abs(g[k] - w[k]) for k in w}
+    ok &= (g["id_acc"] == w["id_acc"] and g["cover40"] == w["cover40"]
+           and gaps["match_metrics"]["center_err_px"] <= 0.05
+           and gaps["match_metrics"]["pa_mpjpe_mm"] <= 1.0)
+    emit({"phase": "hard_small_reference", "gaps": gaps,
+          "match_metrics": runs[DEVICE]["match"], "ok": bool(ok)})
+    check(ok, "GPU vs CPU selfcheck ladder and track_bench metrics")
 
 
 def main() -> int:
@@ -2921,6 +3373,19 @@ def main() -> int:
     del est_qat8
     phase_train_eval_small_reference()
 
+    t0 = time.perf_counter()
+    phase_hard_data_check()
+    hard_npz, sc_launches = phase_selfcheck_main_path()
+    tb_launches = phase_track_bench_main_path(hard_npz)
+    hs_launches = phase_hard_sweep_main_path()
+    tl_launches = phase_tools_main_path()
+    phase_hard_small_reference()
+    shutil.rmtree(SC_OUT, ignore_errors=True)
+    emit({"phase": "hard_set_phases", "seconds": time.perf_counter() - t0})
+    sc_total = _sum_counts(sc_launches.values())
+    sc8 = sc_launches["hard_rc_int8_calibrated"]
+    pe8 = tl_launches["profile_estimate_2d_int8"]
+
     q_row = q_timing[QUANT_KERNEL_ROW]
     g_row = g_timing[IM2COL_KERNEL_ROW]
     sa_row = timing["nhwc", MAIN_BATCH]
@@ -2950,6 +3415,16 @@ def main() -> int:
         "launches_eval_pckh_path": e_launches["pckh"]["soft_argmax"],
         "launches_eval_oks_path": e_launches["oks"]["soft_argmax"],
         "launches_eval_int8_path": e_launches["pckh_int8"]["soft_argmax"],
+        "launches_selfcheck_path": sc_total["soft_argmax"],
+        "launches_selfcheck_int8_rung": sc8["soft_argmax"],
+        "launches_track_bench_path": _sum_counts(
+            tb_launches.values())["soft_argmax"],
+        "launches_hard_sweep_path": hs_launches["soft_argmax"],
+        "launches_demo_path": tl_launches["demo"]["soft_argmax"],
+        "launches_demo_multi_path": tl_launches["demo_multi"]["soft_argmax"],
+        "launches_profile_entry_path": tl_launches[
+            "profile_estimate_and_fit"]["soft_argmax"],
+        "launches_profile_entry_int8_path": pe8["soft_argmax"],
         "max_abs_err": err["max_abs_err"],
         "ms": sa_row["ms"], "plain_ms": sa_row["plain_ms"],
         "bound_ms": sa_row["bound_ms"], "bound_by": sa_row["bound_by"],
@@ -2966,6 +3441,12 @@ def main() -> int:
         "launches_serving_int8_path": si_launches["quantize_act"],
         "launches_eval_int8_path": e_launches["pckh_int8"]["quantize_act"],
         "launches_train_path": t_launches["quantize_act"],
+        "launches_selfcheck_int8_rung": sc8["quantize_act"],
+        "launches_profile_entry_int8_path": pe8["quantize_act"],
+        "absmax_launches_profile_entry_int8_path": pe8[
+            "quantize_act_absmax"],
+        "launches_selfcheck_path_other_sections": sc_total["quantize_act"]
+        - sc8["quantize_act"],
         "max_abs_err": q_err["max_abs_err"],
         "ms": q_row["ms"], "plain_ms": q_row["plain_ms"],
         "bound_ms": q_row["bound_ms"], "bound_by": q_row["bound_by"],
@@ -2983,6 +3464,8 @@ def main() -> int:
         "launches_eval_int8_path": e_launches["pckh_int8"][
             "quantize_im2col"],
         "launches_train_path": t_launches["quantize_im2col"],
+        "launches_selfcheck_int8_rung": sc8["quantize_im2col"],
+        "launches_profile_entry_int8_path": pe8["quantize_im2col"],
         "max_abs_err": g_err["max_abs_err"],
         "ms": g_row["ms"], "plain_ms": g_row["plain_ms"],
         "bound_ms": g_row["bound_ms"], "bound_by": g_row["bound_by"],

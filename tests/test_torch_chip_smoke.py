@@ -135,7 +135,7 @@ def test_im2col_bound_counts_rows_written_and_input_read():
     assert bound == pytest.approx((read + write) / 3.35e12 * 1e3)
 
 
-# -- the multi-person paths' launch counts, against a counted CPU run -------
+# -- the multi-person paths' launch counts, against a counted CPU run --------
 
 KERNEL_WRAPPERS = {"soft_argmax": "soft_argmax_cuda",
                    "quantize_act": "quantize_act_cuda",
@@ -405,3 +405,147 @@ def test_eval_launches_match_a_counted_run(counted, monkeypatch, int8):
         evaluate(est, iter(batches))
         assert {k: counted[k] for k in per_batch} == {
             k: 2 * n for k, n in per_batch.items()}
+
+
+# -- the hard set and its tools (ROADMAP A.19b) ------------------------------
+
+def _small_est(**kw):
+    from tpu_pose_torch.api import PoseEstimator
+    from tpu_pose_torch.utils.config import FitConfig, StageConfig
+    cfg, _ = _small_multi()
+    return cfg, PoseEstimator.create_synthetic(
+        0, cfg, FitConfig(stages=(StageConfig(iters=2),), img_size=64),
+        device="cpu", **kw)
+
+
+@pytest.mark.parametrize("rung", [r[0] for r in
+                                  chip_smoke.selfcheck_e2e.HARD_LADDER])
+def test_front_end_b1_launches_match_a_counted_run(counted, rung):
+    """B1 (and, on the int8 rung, B2) per estimate_and_fit call of each
+    selfcheck ladder rung, as front_end_b1_launches and int8_launches
+    compute them, equal the wrappers' counted calls on a small estimator;
+    the front-end phase's 12 is the same formula's."""
+    import numpy as np
+    _, _, _, kw = next(r for r in chip_smoke.selfcheck_e2e.HARD_LADDER
+                       if r[0] == rung)
+    kw = dict(kw)
+    frames = chip_smoke.two_people_frames(2, 64, 64, 0)
+    if kw.pop("calibrate", False):
+        kw["calibration_images"] = frames
+    cfg, est = _small_est(**kw)
+    for k in counted:
+        counted[k] = 0
+    est.estimate_and_fit(frames)
+    assert counted["soft_argmax"] == chip_smoke.front_end_b1_launches(**kw)
+    want = (chip_smoke.int8_launches(est.cpm, cfg, 2, False)
+            if kw.get("quantize") else chip_smoke.B2_NONE)
+    assert {k: counted[k] for k in want} == want
+    assert chip_smoke.front_end_b1_launches(
+        **chip_smoke.FRONT_END) == chip_smoke.FRONT_END_B1 == 12
+    assert np.isfinite(chip_smoke.front_end_b1_launches(scale_tta=(1.0,)))
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(hint_passes=2),
+                                dict(hint_passes=2, hint_crop=True),
+                                dict(temporal_hints=False)])
+def test_video_multi_b1_launches_match_a_counted_run(counted, kw):
+    """B1 per estimate_and_fit_video_multi call: the NMS pass, then per
+    hint pass the hinted decode and its crop with hint_crop."""
+    _, est = _small_est()
+    est.estimate_and_fit_video_multi(
+        chip_smoke.two_people_frames(4, 64, 64, 0), nms_radius_px=32.0, **kw)
+    assert counted["soft_argmax"] == chip_smoke.video_multi_b1_launches(**kw)
+
+
+@pytest.fixture
+def cpu_phases(monkeypatch, counted, tmp_path):
+    """chip_smoke's hard-set phases rehearsed on the CPU: the small CPM and
+    fit for every estimator the phases and tools build, the 300-vertex
+    SMPL, the selfcheck's depth cut to a few steps and frames, outputs in
+    a temporary directory, launches counted by the wrappers' calls."""
+    import dataclasses
+    from tpu_pose_torch import api as api_lib
+    from tpu_pose_torch.models import smpl_data
+    from tpu_pose_torch.tools import selfcheck_e2e
+    from tpu_pose_torch.utils.config import FitConfig, StageConfig
+    cfg, _ = _small_multi()
+    fit = FitConfig(stages=(StageConfig(iters=2),), img_size=64)
+
+    def setup(device):
+        return cfg, fit, smpl_data.synthetic_smpl(seed=0, num_verts=300,
+                                                  device=device)
+
+    monkeypatch.setattr(selfcheck_e2e, "default_setup", setup)
+    real = api_lib.PoseEstimator.create_synthetic.__func__
+
+    def create(cls, seed=0, cpm_cfg=None, fit_cfg=None, **kw):
+        return real(cls, seed, cfg, dataclasses.replace(
+            fit_cfg or FitConfig(), stages=fit.stages, img_size=64), **kw)
+
+    monkeypatch.setattr(api_lib.PoseEstimator, "create_synthetic",
+                        classmethod(create))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(chip_smoke, "zero_counts",
+                        lambda: counted.update(dict.fromkeys(counted, 0)))
+    monkeypatch.setattr(chip_smoke, "read_counts", lambda: dict(counted))
+    for name, value in dict(
+            DEVICE="cpu", MAIN_CPM=cfg, HARD_DATA_FRAMES=3, TRACK_FRAMES=12,
+            SWEEP_GRID="plain:12:1:0.0,union:12:1:0.35:0:0:1:2",
+            SC_ARGS=["--steps", "4", "--hard_steps", "4", "--train_batch",
+                     "2", "--hard_pool", "2", "--eval_frames", "2",
+                     "--hard_eval_frames", "2", "--video_frames", "3"],
+            SC_DEPTH=dict(EASY_POOL=2, HEAD_STEPS=3, HEAD_BATCH=8,
+                          PRIOR_CORPUS=200, MULTI_FRAMES=2,
+                          HARD_VIDEO_FRAMES=4, EMPTY_FRAMES=4,
+                          COUNT_FRAMES=2, CAL_FRAMES=2),
+            SC_OUT=str(tmp_path / "sc"), SWEEP_OUT=str(tmp_path / "sweep"),
+            DEMO_OUT=str(tmp_path / "demo")).items():
+        monkeypatch.setattr(chip_smoke, name, value)
+    return counted
+
+
+def test_hard_set_phases_run_with_the_computed_launches(cpu_phases):
+    """The six hard-set phases, in main's order, at a small size on the
+    CPU: every check inside them passes, the launch counts included
+    (SELFCHECK_B1 and front_end_b1_launches per section and rung,
+    int8_launches on the int8 rung, track_bench's 2 per call or window,
+    the sweep's 5 per row, the tools' one per image call)."""
+    chip_smoke.phase_hard_data_check()
+    npz, sc = chip_smoke.phase_selfcheck_main_path()
+    assert set(sc) == set(chip_smoke.SELFCHECK_B1) | {
+        r[0] for r in chip_smoke.selfcheck_e2e.HARD_LADDER}
+    assert sc["hard_rc_int8_calibrated"]["quantize_im2col"] > 0
+    tb = chip_smoke.phase_track_bench_main_path(npz)
+    assert tb["enterleave"]["soft_argmax"] == 2 * 2    # 12 frames, 2 windows
+    assert chip_smoke.phase_hard_sweep_main_path()["soft_argmax"] == 10
+    tools = chip_smoke.phase_tools_main_path()
+    assert tools["profile_fit_smpl"]["soft_argmax"] == 0
+    chip_smoke.phase_hard_small_reference()
+
+
+def test_main_runs_every_phase():
+    """main() calls every phase_* function the script defines."""
+    import inspect
+    body = inspect.getsource(chip_smoke.main)
+    phases = [n for n, f in vars(chip_smoke).items()
+              if n.startswith("phase_") and inspect.isfunction(f)]
+    assert len(phases) > 40
+    assert [p for p in phases if f"{p}(" not in body] == []
+
+
+def test_hard_set_helpers():
+    """_sum_counts adds by kernel; _finite_tree walks nested results."""
+    assert chip_smoke._sum_counts([{"soft_argmax": 1}, {"soft_argmax": 2,
+                                                        "quantize_act": 3}]
+                                  ) == {"soft_argmax": 3, "quantize_act": 3,
+                                        "quantize_act_absmax": 0,
+                                        "quantize_im2col": 0}
+    assert chip_smoke._finite_tree({"a": 1.0, "b": {"c": True, "d": 2}})
+    assert not chip_smoke._finite_tree({"a": {"b": float("nan")}})
+
+
+def test_demo_files_accept_the_npy_fallback(tmp_path):
+    (tmp_path / "pose2d_000.png.npy").write_bytes(b"")
+    (tmp_path / "fits.npz").write_bytes(b"")
+    assert chip_smoke._demo_files(str(tmp_path), [
+        "pose2d_000.png", "fits.npz", "mesh_000.obj"]) == ["mesh_000.obj"]

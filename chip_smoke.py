@@ -91,13 +91,14 @@ port's dependencies (torch, numpy). It
    the optimizer and two evaluators on the GPU against the CPU on a
    small float32 model (``train_eval_small_reference``);
 13. times the hard synthetic generator at 368² (``hard_data_check``),
-   runs ``tools/selfcheck_e2e``'s sections 1–5 at full width with the
+   runs ``tools/selfcheck_e2e``'s sections 1–5 and 8 at full width with the
    depth cut (``selfcheck_main_path``: the easy and the hard CPM trained
    on the card, the fused evaluations, the fitted prior, the init head,
    the video fits, two-person frames, the whole hard ladder with
    calibrated int8 at int8_min_batch 0, hard multi-person stills, the
    tracked crossing video, the empty-frame operating point, k = 3
-   stills; every section's B1/B2 launches against the computed counts),
+   stills, the deployment artifact (section 8); every section's B1/B2
+   launches against the computed counts),
    ``tools/track_bench`` on its hard weights (crossing, and enterleave
    through the session windows), a two-row ``tools/hard_sweep``, the demo
    and ``tools/profile_entry`` (``tools_main_path``), and holds the
@@ -105,7 +106,20 @@ port's dependencies (torch, numpy). It
    float32 model (``hard_small_reference``); the selfcheck's sections 9
    and 10 write JPEGs through PIL, which the card's machine lacks, and
    run in the CPU tests only;
-14. prints a ``{"kernels": [...]}`` line and, last,
+14. exports deployment artifacts (``tpu_pose_torch/export.py``) and runs
+   them loaded, with no estimator, against the live calls on the same
+   inputs: the full-width bf16 ``estimate_and_fit`` with a symbolic
+   batch (``export_main_path``: export, save and load seconds, size,
+   seconds per call beside the live call's, section 8's rule, B1 once per
+   call), served by ``BatchingServer(ServableProgram)``
+   (``serving_artifact``); the int8 path at batch 32 with its B2
+   launches as computed (``export_int8``); ``fit_smpl``, the
+   multi-person path and both streaming sessions (``export_fit_smpl``,
+   ``export_multi``, ``export_streams``: the same perms and frame masks
+   as the live sessions); the GPU artifact against the CPU artifact of a
+   small model (``export_small_reference``); and the selfcheck's section
+   8 inside ``selfcheck_main_path``;
+15. prints a ``{"kernels": [...]}`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Every phase prints one JSON object per line. Any failed check raises, so
@@ -137,6 +151,7 @@ import torch.nn.functional as F
 from torch.autograd import DeviceType
 
 from tpu_pose_torch import api as api_lib
+from tpu_pose_torch import export as export_lib
 from tpu_pose_torch import native, serving
 from tpu_pose_torch.api import (MultiPersonVideoSession, PoseEstimator,
                                 VideoSession)
@@ -1162,7 +1177,7 @@ FRONT_END_B1 = 2 * (1 + len(FRONT_END["scale_tta"])) * 2
 FRONT_END_CROPS = (1 + len(FRONT_END["scale_tta"])) * 2 \
     + len(FRONT_END["scale_tta"])
 VIDEO_T = 64                      # BASELINE.json configuration 4
-TEMPORAL_T = 32                   # temporal mode's frames (sequential fits)
+TEMPORAL_T = 16                   # temporal mode's frames (sequential fits)
 VIDEO_RESTARTS = 4
 STREAM_T, STREAM_CHUNK, STREAM_PUSH = 80, 32, 7
 
@@ -2102,11 +2117,12 @@ SERVE_WAIT_MS = 20.0
 SERVE_FIELDS = ("joints2d", "conf", "theta", "beta", "cam", "joints3d",
                 "energy")
 SERVE_LOAD_HW = ((368, 368), (480, 640), (720, 1280))
-SERVE_LOAD_FRAMES = 48
+SERVE_LOAD_FRAMES = 24
 # The loads with the readiness check off run on the first half of the
 # frames: they take ≈ 2.5× the time per frame of the loads with it on
-# (17 small batches), and the script's time limit binds.
-SERVE_LOAD_FRAMES_OFF = 24
+# (17 small batches), and the script's time limit binds (cut from 48 and
+# 24 frames to make room for the export phases).
+SERVE_LOAD_FRAMES_OFF = 12
 SERVE_CLIENTS = 8                  # client threads of the load
 LETTERBOX_HW = ((480, 640), (720, 1280), (1080, 1920))
 # COCO-17 slot of each CPM-14 joint (head → nose; the neck has no COCO
@@ -2842,20 +2858,20 @@ SC_OUT = "build/chip_smoke_selfcheck"     # gitignored; removed at the end
 SWEEP_OUT = "build/chip_smoke_sweep"
 DEMO_OUT = "build/chip_smoke_demo"
 # selfcheck_e2e's flags at full width (CPMConfig()), depth cut: 60 + 60
-# train steps at batch 16, a hard pool of 4 batches, 16 eval, hard eval
-# and video frames.
+# train steps at batch 16, a hard pool of 4 batches, 16 eval and hard eval
+# frames, 8 video frames.
 SC_ARGS = ["--steps", "60", "--hard_steps", "60", "--train_batch", "16",
            "--hard_pool", "4", "--eval_frames", "16",
-           "--hard_eval_frames", "16", "--video_frames", "16"]
+           "--hard_eval_frames", "16", "--video_frames", "8"]
 # Depths the tool fixes in its code, cut: the easy pool (16 → 4 batches),
 # the prior's EM corpus (4000 → 1000 poses: EM is host float64, 30 s at
-# 4000), the init head's steps (2000 → 300, as fit_extras_main_path) and
-# the operating point's frames (32 → 8, 4 per count call).
-SC_DEPTH = {"EASY_POOL": 4, "PRIOR_CORPUS": 1000, "HEAD_STEPS": HEAD_STEPS,
+# 4000), the init head's steps (2000 → 100) and the operating point's
+# frames (32 → 8, 4 per count call). The fit is the default schedule's
+# last stage (section 8 exports it: one scan, not three).
+SC_DEPTH = {"EASY_POOL": 4, "PRIOR_CORPUS": 1000, "HEAD_STEPS": 100,
             "EMPTY_FRAMES": 8, "COUNT_FRAMES": 4}
-# results.json keys of sections 1–5 (sections 9 and 10 write JPEGs through
-# PIL, which the card's machine lacks; the deployment artifact waits for
-# export, ROADMAP A.17).
+# results.json keys of sections 1–5 and 8 (sections 9 and 10 write JPEGs
+# through PIL, which the card's machine lacks).
 SC_KEYS = ("train_final_loss", "fused_random_weights",
            "fused_trained_weights", "fused_fitted_prior",
            "init_head_final_loss", "fused_meanpose_init",
@@ -2863,7 +2879,8 @@ SC_KEYS = ("train_final_loss", "fused_random_weights",
            "video_smooth", "multi_person", "hard_train_final_loss",
            *(rung[0] for rung in selfcheck_e2e.HARD_LADDER),
            "scale_robustness", "hard_multi_person", "hard_multi_video",
-           "empty_frame_operating_point", "hard_multi_person_k3")
+           "empty_frame_operating_point", "hard_multi_person_k3",
+           "export_artifact")
 HARD_DATA_FRAMES = 32
 TRACK_FRAMES = 26                  # track_bench's default --frames
 SWEEP_GRID = "plain:20:2:0.0,union:20:2:0.35:0:0:1:2"
@@ -2871,7 +2888,7 @@ PROFILE_CALLS = 2 + 2 + 1          # Timer warm-up, timed iterations, FLOPs
 # demo --synthetic frames: the single-person demo rasterizes a mesh overlay
 # per frame in host numpy (≈ 6 s a frame at 368²), so it runs 2 frames;
 # --multi, which draws skeletons only, 8.
-DEMO_FRAMES, DEMO_MULTI_FRAMES = 2, 8
+DEMO_FRAMES, DEMO_MULTI_FRAMES = 1, 8
 
 
 def front_end_b1_launches(refine_center: bool = False,
@@ -2901,7 +2918,9 @@ def video_multi_b1_launches(hint_passes: int = 1, hint_crop=False,
 # B1 per selfcheck section, from the calls each makes: estimate_and_fit
 # (one plain pass), estimate_2d, estimate_and_fit_multi; the crossing video
 # with two hint passes; the operating point's two estimate_2d_multi calls
-# and six counted multi calls. No section but the ladder runs B2.
+# and six counted multi calls; section 8's export (its eager run), the
+# loaded artifact and the live call, one each. No section but the ladder
+# runs B2.
 SELFCHECK_B1 = {
     "train_easy": 0, "fused_section": 2, "fitted_prior_section": 1,
     "init_head_section": 2, "video_section": 1,
@@ -2910,7 +2929,8 @@ SELFCHECK_B1 = {
     "hard_multi_section": multi_b1_launches(False, False),
     "hard_video_section": video_multi_b1_launches(hint_passes=2),
     "empty_frame_section": (2 + 6) * multi_b1_launches(False, False),
-    "hard_k3_section": multi_b1_launches(False, False)}
+    "hard_k3_section": multi_b1_launches(False, False),
+    "export_section": 3}
 
 
 def _sum_counts(counts) -> dict:
@@ -2972,13 +2992,14 @@ def phase_hard_data_check() -> dict:
 
 
 def phase_selfcheck_main_path() -> tuple:
-    """selfcheck_e2e's sections 1–5 at full width through the tool's
+    """selfcheck_e2e's sections 1–5 and 8 at full width through the tool's
     section functions, in its order (SC_ARGS, SC_DEPTH): the easy and the
     hard CPM trained on the card, the fused eval with random and trained
     weights, the fitted GMM-8 prior, the init head, the three video fits,
     two-person frames, the whole hard ladder (calibrated int8 at
     int8_min_batch 0 included), hard multi-person stills, the tracked
-    crossing video, the empty-frame operating point, k = 3 stills. Each
+    crossing video, the empty-frame operating point, k = 3 stills, the
+    deployment artifact (section 8, ``export_artifact`` ok). Each
     section (each ladder rung) with the counts zeroed before and read
     after: B1 as SELFCHECK_B1 and front_end_b1_launches compute, B2 only on
     the int8 rung, as int8_launches computes. Checks every key of SC_KEYS
@@ -2988,7 +3009,14 @@ def phase_selfcheck_main_path() -> tuple:
     shutil.rmtree(SC_OUT, ignore_errors=True)
     sc = selfcheck_e2e
     seconds, launches = {}, {}
-    with mock.patch.multiple(sc, **SC_DEPTH):
+    real_setup = sc.default_setup
+
+    def setup(device):
+        cpm_cfg, fit_cfg, model = real_setup(device)
+        return cpm_cfg, temporal.warmstart_schedule(
+            fit_cfg, fit_cfg.stages[-1].iters), model
+
+    with mock.patch.multiple(sc, default_setup=setup, **SC_DEPTH):
         run = sc.Run(sc.parse_args(SC_ARGS + ["--out", SC_OUT,
                                               "--device", DEVICE]))
 
@@ -3025,11 +3053,14 @@ def phase_selfcheck_main_path() -> tuple:
         section("empty_frame_section", sc.empty_frame_section, cpm_h, prior,
                 mh)
         section("hard_k3_section", sc.hard_k3_section, est_mh)
+        section("export_section", sc.export_section, cpm, ex)
     res = run.results
     missing = [k for k in SC_KEYS if k not in res]
     check(not missing, f"selfcheck results lack {missing}")
     bad = [k for k in SC_KEYS if not _finite_tree(res[k])]
     check(not bad, f"selfcheck results not finite: {bad}")
+    check(res["export_artifact"]["ok"],
+          f"section 8's artifact vs the live call: {res['export_artifact']}")
     hard = run.train_losses["hard"]
     cycle = run.args.hard_pool
     first, last = np.mean(hard[:cycle]), np.mean(hard[-cycle:])
@@ -3262,6 +3293,412 @@ def phase_hard_small_reference() -> None:
     check(ok, "GPU vs CPU selfcheck ladder and track_bench metrics")
 
 
+# -- deployment artifacts (ROADMAP A.17) --------------------------------------
+
+EXPORT_OUT = "build/chip_smoke_export"    # gitignored; removed at the end
+EXPORT_STREAM_CHUNK, EXPORT_STREAM_T = 16, 40   # two full windows + 8
+# Section 8's rule (the JAX tool's): the artifact against the live call.
+ARTIFACT_J2D_PX, ARTIFACT_THETA, ARTIFACT_MPJPE_MM = 0.5, 0.05, 1.0
+EXPORT_LOAD_LIMIT_S = 60.0   # the main artifact's export + save + load
+# The fit of the export phases beside the main path and the int8 one: the
+# default schedule's last stage alone (depth cut: an export traces each
+# stage's gradient, seconds apiece, and the main path exports all three).
+EXPORT_FIT = temporal.warmstart_schedule(FitConfig(), FitConfig().stages[-1]
+                                         .iters)
+
+
+def export_estimator_of(est: PoseEstimator) -> PoseEstimator:
+    """``est``'s CPM (the int8 one, for a quantized estimator), SMPL model,
+    prior and front end with :data:`EXPORT_FIT`."""
+    return PoseEstimator(est.cpm, est.smpl_model, est.prior, est.cpm_cfg,
+                         EXPORT_FIT, front_end=est.front_end,
+                         device=est.device)
+
+
+def _export_timed(export, path: str) -> tuple:
+    """``export(path)`` with its save timed apart: (meta, seconds of the
+    export without the save, seconds of the save, MB on disk)."""
+    saves = []
+    real_save = export_lib._save
+
+    def timed_save(*a):
+        t0 = time.perf_counter()
+        out = real_save(*a)
+        saves.append(time.perf_counter() - t0)
+        return out
+
+    t0 = time.perf_counter()
+    with mock.patch.object(export_lib, "_save", timed_save):
+        meta = export(path)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    mb = sum(os.path.getsize(os.path.join(path, f))
+             for f in os.listdir(path)) / 1e6
+    return meta, total - sum(saves), sum(saves), mb
+
+
+def _artifact_gap(out: dict, live) -> dict:
+    """Max |Δ| of joints2d and θ and the joints3d MPJPE (mm) of an
+    artifact's numpy outputs against a live result on the same input, and
+    whether they meet section 8's rule and the 1 mm bound."""
+    got = {k: torch.as_tensor(out[k]) for k in ("joints2d", "theta",
+                                                 "joints3d")}
+    want = {k: getattr(live, k).cpu() for k in got}
+    gap = {"max_d_joints2d_px": float((got["joints2d"]
+                                       - want["joints2d"]).abs().max()),
+           "max_d_theta": float((got["theta"] - want["theta"]).abs().max()),
+           "joints3d_mpjpe_mm": 1000.0 * float(
+               (got["joints3d"] - want["joints3d"]).norm(dim=-1).mean())}
+    gap["ok"] = (gap["max_d_joints2d_px"] < ARTIFACT_J2D_PX
+                 and gap["max_d_theta"] < ARTIFACT_THETA
+                 and gap["joints3d_mpjpe_mm"] <= ARTIFACT_MPJPE_MM)
+    return gap
+
+
+def phase_custom_op_overhead() -> dict:
+    """Eager host µs per call of each kernel's wrapper, which goes through
+    its ``torch.library`` op (the dispatcher and the op's CUDA kernel),
+    against the launch function the op calls, called directly: 500 calls
+    of each, four rounds in turns (direct, wrapper, wrapper, direct), each
+    round ending in a synchronize, on inputs small enough that the host
+    and not the kernel sets the pace. The difference is the op's dispatch
+    overhead per call (the int8 path makes 84 gathers, 12 quantize passes
+    and, with dynamic scales, 40 abs-max passes per chunk of 16)."""
+    ck = cuda_kernels
+    hm = torch.randn(1, 46, 46, 15, device=DEVICE)
+    x = torch.randn(1, 8, 8, 128, device=DEVICE, dtype=torch.bfloat16)
+    scale = ck.act_scale_cuda(x)
+    out = torch.empty(64, 3 * 3 * 128, dtype=torch.int8, device=DEVICE)
+    cases = {
+        "soft_argmax": (lambda: ck.soft_argmax_cuda(hm),
+                        lambda: ck._soft_argmax_launch(hm, 100.0, 8.0)),
+        "act_scale": (lambda: ck.act_scale_cuda(x),
+                      lambda: ck._act_scale_launch(x)),
+        "quantize_act": (lambda: ck.quantize_act_cuda(x, scale),
+                         lambda: ck._quantize_launch(x, scale)),
+        "quantize_im2col": (
+            lambda: ck.quantize_im2col_cuda(x, scale, 3, (0, 1, 0, 8), out),
+            lambda: ck._im2col_launch(x, scale, 3, (0, 1, 0, 8), out)),
+    }
+    calls, res = 500, {}
+    for name, (wrapper, direct) in cases.items():
+        us = {"wrapper": [], "direct": []}
+        for kind in ("direct", "wrapper", "wrapper", "direct"):
+            fn = wrapper if kind == "wrapper" else direct
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            us[kind].append((time.perf_counter() - t0) / calls * 1e6)
+        res[name] = {"wrapper_us": us["wrapper"], "direct_us": us["direct"],
+                     "overhead_us": statistics.median(us["wrapper"])
+                     - statistics.median(us["direct"])}
+    emit({"phase": "custom_op_overhead", "calls": calls, **res})
+    return res
+
+
+def phase_export_main_path(est: PoseEstimator, images: np.ndarray) -> tuple:
+    """The slice's path: the full-width bf16 ``estimate_and_fit`` exported
+    with a symbolic batch (``export.export_estimator``, the default
+    FitConfig's three Adam stages as scans), saved, loaded
+    (``export.load``) and run at batch 8 against the live call on the
+    same frames, live and artifact in turns (live, artifact, artifact,
+    live). Checks section 8's rule (Δjoints2d < 0.5 px, Δθ < 0.05) and
+    joints3d within 1 mm MPJPE; B1's launches per artifact call equal to
+    the live call's; export + load under 60 s. Returns (the loaded
+    program, its launches in one call)."""
+    path = f"{EXPORT_OUT}/main"
+    meta, export_s, save_s, mb = _export_timed(
+        lambda p: export_lib.export_estimator(est, p, fn="estimate_and_fit"),
+        path)
+    t0 = time.perf_counter()
+    prog = export_lib.load(path)
+    load_s = time.perf_counter() - t0
+    calls = {"live": [], "artifact": []}
+    launches, outs = {}, {}
+    for kind in ("live", "artifact", "artifact", "live"):
+        call = ((lambda: est.estimate_and_fit(images)) if kind == "live"
+                else (lambda: prog(images)))
+        outs[kind], launches[kind], sec = _counted(call)
+        calls[kind].append(sec)
+    gap = _artifact_gap(outs["artifact"], outs["live"])
+    for k, v in outs["artifact"].items():
+        check(np.isfinite(v).all(), f"artifact {k} finite")
+    check(meta["input"]["shape"][0] == "b", "symbolic batch")
+    emit({"phase": "export_main_path", "batch": images.shape[0],
+          "symbolic_batch": True, "export_s": export_s, "save_s": save_s,
+          "load_s": load_s, "export_plus_load_s": export_s + save_s + load_s,
+          "program_mb": mb, "precision": meta["precision"],
+          "decode_impl": meta["decode_impl"],
+          "seconds_per_call": calls,
+          "artifact_over_live": statistics.median(calls["artifact"])
+          / statistics.median(calls["live"]),
+          "launches_live": launches["live"],
+          "launches_artifact": launches["artifact"], **gap})
+    check(gap["ok"], f"artifact vs live: {gap}")
+    check(launches["artifact"] == launches["live"]
+          and launches["artifact"]["soft_argmax"] == 1,
+          f"artifact launched {launches['artifact']}, live "
+          f"{launches['live']}")
+    check(export_s + save_s + load_s < EXPORT_LOAD_LIMIT_S,
+          f"export + save + load took {export_s + save_s + load_s} s")
+    return prog, launches["artifact"]
+
+
+def phase_export_int8(est8: PoseEstimator, images: np.ndarray,
+                      per_chunk: dict) -> dict:
+    """The int8 path (``est8`` an :func:`export_estimator_of`) exported at
+    a static batch of 32 with ``cpm_microbatch`` 16 (two chunks): the
+    loaded artifact's B2 launches
+    are ``int8_launches``' two chunks, B1's the live call's; its outputs
+    against the live int8 call within section 8's rule and 1 mm."""
+    path = f"{EXPORT_OUT}/int8"
+    meta, export_s, save_s, mb = _export_timed(
+        lambda p: export_lib.export_estimator(est8, p, fn="estimate_and_fit",
+                                              batch=images.shape[0]), path)
+    prog = export_lib.load(path)
+    live, live_launches, live_s = _counted(
+        lambda: est8.estimate_and_fit(images))
+    out, launches, art_s = _counted(lambda: prog(images))
+    chunks = images.shape[0] // INT8_CHUNK
+    want = {**{k: n * chunks for k, n in per_chunk.items()},
+            "soft_argmax": chunks}
+    gap = _artifact_gap(out, live)
+    emit({"phase": "export_int8", "batch": images.shape[0],
+          "cpm_microbatch": INT8_CHUNK, "export_s": export_s,
+          "save_s": save_s, "program_mb": mb,
+          "quantized_params": meta["estimator"]["quantized_params"],
+          "live_s": live_s, "artifact_s": art_s,
+          "launches_live": live_launches, "launches_artifact": launches,
+          "launches_expected": want, **gap})
+    check(meta["estimator"]["quantized_params"], "int8 params baked")
+    check(launches == want and live_launches == want,
+          f"int8 artifact launched {launches}, live {live_launches}, "
+          f"expected {want}")
+    check(gap["ok"], f"int8 artifact vs live: {gap}")
+    return launches
+
+
+def phase_export_fit_smpl(est: PoseEstimator) -> dict:
+    """The joints-only ``fit_smpl`` artifact (static batch 8, ``est`` an
+    :func:`export_estimator_of`) on the joints of 8 known bodies against
+    the live ``fit_smpl`` + mesh: θ within section 8's 0.05, joints3d
+    within 1 mm; no kernel launches (there is no CPM)."""
+    path = f"{EXPORT_OUT}/fit_smpl"
+    _, export_s, save_s, mb = _export_timed(
+        lambda p: export_lib.export_estimator(est, p, fn="fit_smpl",
+                                              batch=8), path)
+    prog = export_lib.load(path)
+    px, conf = _clean_fit_observations(est.smpl_model, range(8),
+                                       est.fit_cfg.img_size)
+    live = est.fit_smpl(px, conf)
+    _, joints3d = est._mesh(live)
+    out, launches, _ = _counted(lambda: prog(px, conf))
+    d_theta = float((torch.as_tensor(out["theta"]) - live.theta.cpu())
+                    .abs().max())
+    mpjpe = 1000.0 * float((torch.as_tensor(out["joints3d"])
+                            - joints3d.cpu()).norm(dim=-1).mean())
+    ok = d_theta < ARTIFACT_THETA and mpjpe <= ARTIFACT_MPJPE_MM
+    emit({"phase": "export_fit_smpl", "batch": 8, "export_s": export_s,
+          "save_s": save_s, "program_mb": mb, "max_d_theta": d_theta,
+          "joints3d_mpjpe_mm": mpjpe, "launches": launches, "ok": ok})
+    check(launches == dict.fromkeys(COUNTED, 0),
+          f"fit_smpl artifact launched {launches}")
+    check(ok, "fit_smpl artifact vs live")
+    return launches
+
+
+def phase_export_multi(est: PoseEstimator, images: np.ndarray) -> dict:
+    """``estimate_and_fit_multi`` (2 slots; ``est`` an
+    :func:`export_estimator_of`) exported at a static batch of 8 on
+    two-person frames: the same person masks as the live call, the
+    fields within section 8's rule and 1 mm, B1's launches the live
+    call's (``multi_b1_launches``)."""
+    path = f"{EXPORT_OUT}/multi"
+    _, export_s, save_s, mb = _export_timed(
+        lambda p: export_lib.export_estimator(
+            est, p, fn="estimate_and_fit_multi", batch=images.shape[0],
+            max_people=MULTI_PEOPLE), path)
+    prog = export_lib.load(path)
+    live, live_launches, _ = _counted(
+        lambda: est.estimate_and_fit_multi(images, max_people=MULTI_PEOPLE))
+    out, launches, _ = _counted(lambda: prog(images))
+    gap = _artifact_gap(out, live)
+    same_mask = bool(np.array_equal(out["person_mask"],
+                                    live.person_mask.cpu().numpy()))
+    emit({"phase": "export_multi", "batch": images.shape[0],
+          "max_people": MULTI_PEOPLE, "export_s": export_s,
+          "save_s": save_s, "program_mb": mb,
+          "same_person_mask": same_mask, "launches_live": live_launches,
+          "launches_artifact": launches, **gap})
+    check(launches == live_launches == {
+        **B2_NONE, "soft_argmax": multi_b1_launches(False, False)},
+        f"multi artifact launched {launches}, live {live_launches}")
+    check(same_mask and gap["ok"], f"multi artifact vs live: {gap}")
+    return launches
+
+
+def _session_outputs(session, frames: np.ndarray, to_numpy) -> list:
+    outs = []
+    for i in range(0, frames.shape[0], STREAM_PUSH):
+        r = session.push(frames[i:i + STREAM_PUSH])
+        if r is not None:
+            outs.append(to_numpy(r))
+    outs.append(to_numpy(session.flush()))
+    return outs
+
+
+def phase_export_streams(est: PoseEstimator) -> dict:
+    """Both streaming artifacts of ``est`` (an :func:`export_estimator_of`)
+    at chunk 16 over 40 frames (two full windows and a padded one), pushed
+    7 frames at a time:
+    ``ArtifactVideoSession`` of ``export_video_stream`` against
+    ``VideoSession``, and of ``export_video_multi_stream`` against
+    ``MultiPersonVideoSession`` on two-person frames. Same windows and
+    carries: the same perms and frame masks, joints3d within 1 mm; B1
+    once a window (the multi pipeline: ``video_multi_b1_launches``)."""
+    size = est.cpm_cfg.input_size
+    chunk, t = EXPORT_STREAM_CHUNK, EXPORT_STREAM_T
+    windows = -(-t // chunk)
+    res, launches = {}, {}
+    for kind, frames in (
+            ("video_stream", _frames(t, size, size, seed=61)),
+            ("video_multi_stream", two_people_frames(t, size, size,
+                                                     seed=62))):
+        path = f"{EXPORT_OUT}/{kind}"
+        if kind == "video_stream":
+            export = lambda p: export_lib.export_video_stream(  # noqa: E731
+                est, p, chunk=chunk)
+            live_session = VideoSession(est, chunk=chunk)
+            per_window = 1
+        else:
+            export = lambda p: export_lib.export_video_multi_stream(  # noqa
+                est, p, chunk=chunk, max_people=MULTI_PEOPLE)
+            live_session = MultiPersonVideoSession(
+                est, max_people=MULTI_PEOPLE, chunk=chunk)
+            per_window = video_multi_b1_launches()
+        _, export_s, save_s, mb = _export_timed(export, path)
+        t0 = time.perf_counter()
+        art_session = export_lib.ArtifactVideoSession(path)
+        load_s = time.perf_counter() - t0
+        to_np = (lambda r: {k: v.cpu().numpy()  # noqa: E731
+                            for k, v in r._asdict().items()})
+        live, live_l, live_s = _counted(
+            lambda: _session_outputs(live_session, frames, to_np))
+        art, art_l, art_s = _counted(
+            lambda: _session_outputs(art_session, frames, lambda r: r))
+        axis1 = {"theta", "beta", "cam", "vertices", "joints3d", "energy"} \
+            if kind == "video_multi_stream" else set()
+
+        def cat(outs, k):
+            return np.concatenate([o[k] for o in outs],
+                                  axis=1 if k in axis1 else 0)
+        mpjpe = 1000.0 * float(np.linalg.norm(
+            cat(art, "joints3d") - cat(live, "joints3d"), axis=-1).mean())
+        same = {k: bool(np.array_equal(cat(art, k), cat(live, k)))
+                for k in ("perm", "frame_mask") if k in art[0]}
+        ok = all(same.values()) and mpjpe <= ARTIFACT_MPJPE_MM
+        res[kind] = {"export_s": export_s, "save_s": save_s,
+                     "load_s": load_s, "program_mb": mb,
+                     "live_s": live_s, "artifact_s": art_s,
+                     "same": same, "joints3d_mpjpe_mm": mpjpe,
+                     "launches_live": live_l, "launches_artifact": art_l,
+                     "ok": ok}
+        check(ok, f"{kind} artifact session vs live session: "
+              f"{res[kind]}")
+        want = {**B2_NONE, "soft_argmax": per_window * windows}
+        check(art_l == live_l == want,
+              f"{kind}: artifact launched {art_l}, live {live_l}, "
+              f"expected {want}")
+        launches[kind] = art_l
+    emit({"phase": "export_streams", "frames": t, "chunk": chunk,
+          "push": STREAM_PUSH, **res})
+    return launches
+
+
+def phase_serving_artifact(prog) -> dict:
+    """A few requests through ``BatchingServer(ServableProgram(prog))``,
+    the main path's loaded artifact behind the server with no estimator:
+    8 frames of three resolutions, letterboxed at submit time into one
+    batch of 8, each response within section 8's rule of the artifact's
+    direct call on the same letterboxed batch (the same batch: bf16
+    convs round differently at another batch size, and random weights'
+    flat heatmaps turn that into pixels); one B1 launch per batch."""
+    servable = export_lib.ServableProgram(prog)
+    frames = _load_frames(300)[:SERVE_BATCH]
+    size = servable.cpm_cfg.input_size
+    with serving.BatchingServer(servable, max_batch=SERVE_BATCH,
+                                buckets=(SERVE_BATCH,), max_wait_ms=5000.0,
+                                fields=SERVE_FIELDS) as srv:
+        zero_counts()
+        outs = [f.result(600) for f in srv.submit_many(frames)]
+        launches = read_counts()
+        snap = srv.stats.snapshot()
+    boxed = [pre.letterbox_image_np(img, size)
+             if img.shape[:2] != (size, size) else (img, None)
+             for img in frames]
+    direct = prog(np.stack([b for b, _ in boxed]))
+    gaps = []
+    for i, (out, (_, a)) in enumerate(zip(outs, boxed)):
+        j = direct["joints2d"][i]
+        if a is not None:
+            j = (j - a[2:4]) / a[0:2]
+        gaps.append({"joints2d": float(np.abs(out["joints2d"] - j).max()),
+                     "theta": float(np.abs(out["theta"]
+                                           - direct["theta"][i]).max())})
+    ok = all(g["joints2d"] < ARTIFACT_J2D_PX and g["theta"] < ARTIFACT_THETA
+             for g in gaps)
+    emit({"phase": "serving_artifact", "requests": len(frames),
+          "batches": snap["batches"], "mean_batch": snap["mean_batch"],
+          "max_d_joints2d_px": max(g["joints2d"] for g in gaps),
+          "max_d_theta": max(g["theta"] for g in gaps),
+          "launches": launches, "ok": ok})
+    check(len(outs) == len(frames) and all(
+        o["theta"].shape == (72,) for o in outs), "every request answered")
+    check(snap["batches"] == 1, f"{len(frames)} requests formed "
+          f"{snap['batches']} batches")
+    check(launches == {**B2_NONE, "soft_argmax": 1},
+          f"served artifact launched {launches}")
+    check(ok, "served artifact vs its direct call")
+    return launches
+
+
+def phase_export_small_reference() -> None:
+    """The GPU artifact against the CPU artifact of the same small float32
+    estimator (``_small_cfgs``' CPM and the last stage of its fit, the
+    same weights on both devices; TF32 off while exporting, which the
+    artifact records and applies; the process's first exports, so the CPU
+    one's seconds include torch.export's one-time set-up):
+    ``estimate_and_fit`` at a static batch of 2 on the same frames,
+    joints2d within 1e-2 px, θ within 1e-3, joints3d within 1 mm."""
+    cpm_cfg, fit_cfg = _small_cfgs()
+    fit_cfg = temporal.warmstart_schedule(fit_cfg, fit_cfg.stages[-1].iters)
+    frames = _frames(2, cpm_cfg.input_size, cpm_cfg.input_size, seed=63)
+    outs, seconds = {}, {}
+    with NoTF32():
+        for dev in ("cpu", DEVICE):
+            est = PoseEstimator.create_synthetic(
+                seed=0, cpm_cfg=cpm_cfg, fit_cfg=fit_cfg, device=dev)
+            path = f"{EXPORT_OUT}/small_{dev}"
+            t0 = time.perf_counter()
+            meta = export_lib.export_estimator(est, path,
+                                               fn="estimate_and_fit",
+                                               batch=2)
+            seconds[dev] = time.perf_counter() - t0
+            check(meta["platforms"] == [dev], f"platforms {meta}")
+            outs[dev] = export_lib.load(path)(frames)
+    gap = {k: float(np.abs(outs[DEVICE][k] - outs["cpu"][k]).max())
+           for k in ("joints2d", "theta", "cam")}
+    gap["joints3d_mpjpe_mm"] = 1000.0 * float(np.linalg.norm(
+        outs[DEVICE]["joints3d"] - outs["cpu"]["joints3d"], axis=-1).mean())
+    ok = (gap["joints2d"] <= 1e-2 and gap["theta"] <= 1e-3
+          and gap["joints3d_mpjpe_mm"] <= 1.0)
+    emit({"phase": "export_small_reference", "export_s": seconds,
+          "gap": gap, "ok": ok})
+    check(ok, f"GPU artifact vs CPU artifact: {gap}")
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
@@ -3287,6 +3724,19 @@ def main() -> int:
     size = MAIN_CPM.input_size
     images = _frames(MAIN_BATCH, size, size, seed=0)
     res, launches = phase_main_path(est, images)
+    phase_custom_op_overhead()
+    # First, as the process's first exports: torch.export's first use
+    # imports and sets up its machinery once.
+    phase_export_small_reference()
+    art_main, xp_launches = phase_export_main_path(est, images)
+    sa_launches = phase_serving_artifact(art_main)
+    del art_main
+    est_x = export_estimator_of(est)
+    xf_launches = phase_export_fit_smpl(est_x)
+    xm_launches = phase_export_multi(
+        est_x, two_people_frames(MAIN_BATCH, size, size, seed=64))
+    xs_launches = phase_export_streams(est_x)
+    del est_x
     phase_breakdown(est, images)
     phase_profile(est, images)
     phase_plain_decode(est, images, res)
@@ -3315,6 +3765,8 @@ def main() -> int:
     _, launches8 = phase_main_path(
         est8, images8, "int8_main_path",
         {k: n * runs for k, n in per_chunk.items()})
+    x8_launches = phase_export_int8(export_estimator_of(est8), images8,
+                                    per_chunk)
     phase_int8_dynamic(images8[:INT8_CHUNK])
     phase_int8_small_batch(est8, images8[:MAIN_BATCH])
     phase_int8_breakdown(est8, images8[:INT8_CHUNK])
@@ -3381,6 +3833,7 @@ def main() -> int:
     tl_launches = phase_tools_main_path()
     phase_hard_small_reference()
     shutil.rmtree(SC_OUT, ignore_errors=True)
+    shutil.rmtree(EXPORT_OUT, ignore_errors=True)
     emit({"phase": "hard_set_phases", "seconds": time.perf_counter() - t0})
     sc_total = _sum_counts(sc_launches.values())
     sc8 = sc_launches["hard_rc_int8_calibrated"]
@@ -3425,6 +3878,17 @@ def main() -> int:
         "launches_profile_entry_path": tl_launches[
             "profile_estimate_and_fit"]["soft_argmax"],
         "launches_profile_entry_int8_path": pe8["soft_argmax"],
+        "launches_export_main_path": xp_launches["soft_argmax"],
+        "launches_export_int8_path": x8_launches["soft_argmax"],
+        "launches_export_multi_path": xm_launches["soft_argmax"],
+        "launches_export_video_stream_path": xs_launches["video_stream"][
+            "soft_argmax"],
+        "launches_export_video_multi_stream_path": xs_launches[
+            "video_multi_stream"]["soft_argmax"],
+        "launches_export_fit_smpl_path": xf_launches["soft_argmax"],
+        "launches_serving_artifact_path": sa_launches["soft_argmax"],
+        "launches_selfcheck_export_section": sc_launches["export_section"][
+            "soft_argmax"],
         "max_abs_err": err["max_abs_err"],
         "ms": sa_row["ms"], "plain_ms": sa_row["plain_ms"],
         "bound_ms": sa_row["bound_ms"], "bound_by": sa_row["bound_by"],
@@ -3445,6 +3909,7 @@ def main() -> int:
         "launches_profile_entry_int8_path": pe8["quantize_act"],
         "absmax_launches_profile_entry_int8_path": pe8[
             "quantize_act_absmax"],
+        "launches_export_int8_path": x8_launches["quantize_act"],
         "launches_selfcheck_path_other_sections": sc_total["quantize_act"]
         - sc8["quantize_act"],
         "max_abs_err": q_err["max_abs_err"],
@@ -3466,6 +3931,7 @@ def main() -> int:
         "launches_train_path": t_launches["quantize_im2col"],
         "launches_selfcheck_int8_rung": sc8["quantize_im2col"],
         "launches_profile_entry_int8_path": pe8["quantize_im2col"],
+        "launches_export_int8_path": x8_launches["quantize_im2col"],
         "max_abs_err": g_err["max_abs_err"],
         "ms": g_row["ms"], "plain_ms": g_row["plain_ms"],
         "bound_ms": g_row["bound_ms"], "bound_by": g_row["bound_by"],

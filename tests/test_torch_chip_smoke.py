@@ -549,3 +549,83 @@ def test_demo_files_accept_the_npy_fallback(tmp_path):
     (tmp_path / "fits.npz").write_bytes(b"")
     assert chip_smoke._demo_files(str(tmp_path), [
         "pose2d_000.png", "fits.npz", "mesh_000.obj"]) == ["mesh_000.obj"]
+
+
+# -- the deployment-artifact phases, rehearsed on the CPU ---------------------
+
+# Where each kernel's op runs its plain version on a CPU tensor: one call
+# there is one launch on the card, from a live call or a loaded artifact
+# alike (an export's trace runs the fake implementations instead).
+OP_PLAIN = {"soft_argmax": ("softargmax_lib", "soft_argmax"),
+            "quantize_act": ("quantize_lib", "_quantize"),
+            "quantize_act_absmax": ("quantize_lib", "act_scale"),
+            "quantize_im2col": ("quantize_lib", "quantize_im2col")}
+
+
+@pytest.fixture
+def cpu_export(monkeypatch, tmp_path):
+    """chip_smoke's export phases on the CPU: the small CPM, a short fit,
+    short stream windows, artifacts in a temporary directory, launches
+    counted where the custom ops run their plain versions (so a loaded
+    artifact's calls count as the live path's do)."""
+    import types
+    from tpu_pose_torch.fitting import temporal
+    from tpu_pose_torch.ops import cuda_kernels
+    from tpu_pose_torch.utils.config import FitConfig, StageConfig
+    counts = dict.fromkeys(OP_PLAIN, 0)
+    for lib in ("softargmax_lib", "quantize_lib"):
+        real = getattr(cuda_kernels, lib)
+        proxy = types.SimpleNamespace(**{
+            n: getattr(real, n) for n in dir(real) if not n.startswith("__")})
+        for key, (where, name) in OP_PLAIN.items():
+            if where == lib:
+                def counting(*a, _f=getattr(real, name), _k=key, **kw):
+                    counts[_k] += 1
+                    return _f(*a, **kw)
+                setattr(proxy, name, counting)
+        monkeypatch.setattr(cuda_kernels, lib, proxy)
+    cfg, _ = _small_multi()
+    # One stage: an export traces one gradient graph per stage.
+    fit = FitConfig(stages=(StageConfig(iters=3, lr=0.02),), img_size=64)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(chip_smoke, "zero_counts",
+                        lambda: counts.update(dict.fromkeys(counts, 0)))
+    monkeypatch.setattr(chip_smoke, "read_counts", lambda: dict(counts))
+    for name, value in dict(
+            DEVICE="cpu", MAIN_CPM=cfg, EXPORT_OUT=str(tmp_path / "x"),
+            EXPORT_FIT=temporal.warmstart_schedule(fit, 3),
+            EXPORT_STREAM_CHUNK=3, EXPORT_STREAM_T=7,
+            EXPORT_LOAD_LIMIT_S=float("inf")).items():
+        monkeypatch.setattr(chip_smoke, name, value)
+    return cfg, fit
+
+
+def test_export_phases_run_with_the_computed_launches(cpu_export,
+                                                      monkeypatch):
+    """The main-path artifact, the served artifact, the fit_smpl and
+    multi-person artifacts and the int8 artifact, on the CPU at a small
+    size: every check inside the phases passes (section 8's rule against
+    the live calls, one B1 per artifact call and served batch, int8's B2
+    launches as int8_launches computes them)."""
+    from tpu_pose_torch.api import PoseEstimator
+    cfg, fit = cpu_export
+    est = PoseEstimator.create_synthetic(seed=0, cpm_cfg=cfg, fit_cfg=fit,
+                                         device="cpu")
+    images = chip_smoke._frames(2, 64, 64, seed=0)
+    prog, launches = chip_smoke.phase_export_main_path(est, images)
+    assert launches["soft_argmax"] == 1
+    assert chip_smoke.phase_serving_artifact(prog)["soft_argmax"] == 1
+    est_x = chip_smoke.export_estimator_of(est)
+    assert chip_smoke.phase_export_fit_smpl(est_x)["soft_argmax"] == 0
+    chip_smoke.phase_export_multi(est_x, chip_smoke.two_people_frames(
+        2, 64, 64, seed=64))
+    est8 = PoseEstimator.create_synthetic(
+        seed=0, cpm_cfg=cfg, fit_cfg=fit, quantize=True,
+        calibration_images=images, cpm_microbatch=2, int8_min_batch=1,
+        device="cpu")
+    per_chunk = chip_smoke.int8_launches(est8.cpm, cfg, 2, False)
+    monkeypatch.setattr(chip_smoke, "INT8_CHUNK", 2)
+    got = chip_smoke.phase_export_int8(
+        est8, chip_smoke._frames(4, 64, 64, seed=2), per_chunk)
+    assert got["quantize_im2col"] == 2 * per_chunk["quantize_im2col"] > 0
+

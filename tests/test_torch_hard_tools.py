@@ -219,7 +219,7 @@ SELFCHECK_ARGV = ["--steps", "3", "--train_batch", "2", "--eval_frames",
                   "2", "--video_frames", "3", "--restarts", "2",
                   "--hard_steps", "3", "--hard_pool", "1",
                   "--hard_eval_frames", "2", "--device", "cpu"]
-# results.json's keys: the JAX tool's, but its deployment artifact.
+# results.json's keys: the JAX tool's.
 SELFCHECK_KEYS = {
     "train_final_loss", "fused_random_weights", "fused_trained_weights",
     "fused_fitted_prior", "init_head_final_loss", "fused_meanpose_init",
@@ -230,7 +230,8 @@ SELFCHECK_KEYS = {
     "hard_truncated_rc_flip", "hard_fixed_scale", "hard_scale_sweep_plain",
     "hard_scale_sweep_refine_scale", "scale_robustness",
     "hard_multi_person", "hard_multi_video", "empty_frame_operating_point",
-    "hard_multi_person_k3", "dataset_adapter_chain", "threedpw_chain"}
+    "hard_multi_person_k3", "export_artifact", "dataset_adapter_chain",
+    "threedpw_chain"}
 
 
 @pytest.fixture
@@ -241,13 +242,15 @@ def small_selfcheck(monkeypatch):
 
 
 def test_selfcheck_cli(small_selfcheck, tmp_path, capsys):
-    """Every section, 9 and 10 included: results.json with the JAX tool's
-    keys (its deployment artifact aside), both weights npz files in the
-    JAX package's format; --hard_weights loads the saved hard weights in
-    place of training."""
+    """Every section, 8 to 10 included: results.json with the JAX tool's
+    keys, the deployment artifact within its rule, both weights npz files
+    in the JAX package's format; --hard_weights loads the saved hard
+    weights in place of training."""
     out = str(tmp_path / "sc")
     res = selfcheck_e2e.main(SELFCHECK_ARGV + ["--out", out])
     assert set(res) == SELFCHECK_KEYS
+    assert res["export_artifact"]["ok"]
+    assert os.path.exists(os.path.join(out, "artifact", "meta.json"))
     with open(os.path.join(out, "results.json")) as f:
         assert json.load(f) == json.loads(json.dumps(res))
     assert res["dataset_adapter_chain"]["num_frames"] == 8

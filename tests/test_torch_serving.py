@@ -517,6 +517,54 @@ class _ArtifactStub(_EchoEstimator):
     result_fields = ("first_px",)
 
 
+def test_server_fn_must_match_artifact(est, tmp_path):
+    """An estimate_and_fit_multi artifact behind the default fn (or the
+    reverse) is a contract mismatch and must fail at construction; with
+    the matching fn it serves (the knobs baked at export)."""
+    from tpu_pose_torch import export as pexport
+    est2 = PoseEstimator(est.cpm, est.smpl_model, None, est.cpm_cfg,
+                         est.fit_cfg, device="cpu")
+    path = str(tmp_path / "multi_art")
+    pexport.export_estimator(est2, path, fn="estimate_and_fit_multi",
+                             batch=2, platforms=("cpu",), max_people=2)
+    sp = pexport.ServableProgram(path)
+    with pytest.raises(ValueError, match="construct the server"):
+        serving.BatchingServer(sp)   # default fn mismatches
+    with pytest.raises(ValueError, match="artifact-backed"):
+        serving.BatchingServer(sp, fn="estimate_and_fit_multi",
+                               fn_kwargs={"max_people": 2})
+    with serving.BatchingServer(sp, fn="estimate_and_fit_multi",
+                                buckets=(2,), max_batch=2,
+                                fields=("joints2d", "person_mask")) as s:
+        frames = np.zeros((2, 64, 64, 3), np.uint8)
+        out = [f.result(timeout=TIMEOUT) for f in s.submit_many(frames)]
+    assert np.asarray(out[0]["joints2d"]).shape == (2, 14, 2)
+    assert np.asarray(out[0]["person_mask"]).shape == (2,)
+
+
+def test_server_fit_smpl_from_artifact(est, tmp_path):
+    """A fit_smpl artifact serves joints-only deployments: the host has no
+    model code, the response includes the posed mesh, and each result
+    equals the live estimator's fit of the same joints."""
+    from tpu_pose_torch import export as pexport
+    path = str(tmp_path / "fit_art")
+    pexport.export_estimator(est, path, fn="fit_smpl", batch=2,
+                             platforms=("cpu",))
+    sp = pexport.ServableProgram(path)
+    rng = np.random.RandomState(1)
+    joints = [rng.rand(14, 2).astype(np.float32) * 64 for _ in range(2)]
+    with serving.BatchingServer(sp, fn="fit_smpl", buckets=(2,),
+                                max_batch=2) as srv:
+        futs = [srv.submit_fit(j, np.ones(14, np.float32)) for j in joints]
+        outs = [f.result(timeout=TIMEOUT) for f in futs]
+    assert np.asarray(outs[0]["vertices"]).shape == (6890, 3)
+    assert np.asarray(outs[0]["theta"]).shape == (72,)
+    live = est.fit_smpl(np.stack(joints), np.ones((2, 14), np.float32))
+    for i in range(2):
+        np.testing.assert_allclose(outs[i]["theta"], live.theta[i].numpy(),
+                                   rtol=0, atol=1e-5)
+
+
 def test_server_fn_must_match_estimator_fn():
     """The artifact check stays generic: an estimator naming its fn must
     be served with that fn and without fn_kwargs; its result_fields

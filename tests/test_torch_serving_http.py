@@ -619,17 +619,17 @@ def test_listener_backlog_default():
 
 
 def test_serve_cli_flags_and_default_fields(est):
-    """The serve CLI's flags are the JAX CLI's (argparse, no --artifact)
-    plus --device, which defaults to the card; each fn's default fields
-    are fields that fn's server accepts."""
+    """The serve CLI's flags are the JAX CLI's (argparse; --artifact
+    serves a deployment artifact, tests/test_torch_export.py) plus
+    --device, which defaults to the card; each fn's default fields are
+    fields that fn's server accepts."""
     from tpu_pose_torch.tools import serve
     args = serve.parse_args([])
     assert (args.device, args.port, args.max_batch, args.fn,
             args.max_queue, args.max_wait_ms) == (
         "cuda", 8080, 64, "estimate_and_fit", -1, 5.0)
-    assert not hasattr(args, "artifact")
-    with pytest.raises(SystemExit):
-        serve.parse_args(["--artifact", "x"])
+    assert args.artifact == ""
+    assert serve.parse_args(["--artifact", "x"]).artifact == "x"
     args = serve.parse_args(["--fn", "fit_smpl", "--device", "cpu",
                              "--max_people", "3", "--allow_empty"])
     assert (args.fn, args.device, args.max_people, args.allow_empty) == (

@@ -39,7 +39,7 @@ from tpu_pose_torch.models import smpl_data as smpl_data_lib
 from tpu_pose_torch.ops import preprocess as pre
 from tpu_pose_torch.utils import tf_converter
 from tpu_pose_torch.utils.config import CPMConfig, FitConfig, FrontEndConfig
-from tpu_pose_torch.utils.device import resolve_device
+from tpu_pose_torch.utils.device import no_grad, resolve_device
 
 
 class Estimate2DResult(NamedTuple):
@@ -282,7 +282,7 @@ class PoseEstimator:
         if self.init_head is None:
             return None
         half = self.fit_cfg.img_size / 2.0
-        with torch.no_grad():
+        with no_grad():
             return head_lib.head_init_pytree(
                 self.init_head, self.smpl_model, (joints2d_px - half) / half,
                 conf, self.fit_cfg)
@@ -310,7 +310,7 @@ class PoseEstimator:
         kw.update(knobs)
         if cpm is None:
             cpm = self._params_for_batch(frames.shape[0])
-        with torch.no_grad():
+        with no_grad():
             return cpm_lib.estimate_2d_microbatched(
                 cpm, self._tensor(frames), self.cpm_cfg,
                 chunk=self.cpm_microbatch if chunk is None else chunk, **kw)
@@ -377,7 +377,7 @@ class PoseEstimator:
         """The final mesh of fitted (..., 72) θ and (..., 10) β at the
         exact tier (full float32, TF32 off), leading axes kept."""
         lead = res.theta.shape[:-1]
-        with torch.no_grad():
+        with no_grad():
             out = smpl_lib.smpl_forward(
                 self.smpl_model, res.beta.reshape(-1, res.beta.shape[-1]),
                 res.theta.reshape(-1, res.theta.shape[-1]),
@@ -490,7 +490,7 @@ class PoseEstimator:
         person_scores)."""
         if cpm is None:
             cpm = self._params_for_batch(frames.shape[0])
-        with torch.no_grad():
+        with no_grad():
             return cpm_lib.estimate_2d_multi(
                 cpm, self._tensor(frames), self.cpm_cfg,
                 letterbox=self.letterbox, refine_scale=self.refine_scale,

@@ -31,6 +31,7 @@ from tpu_pose_torch.fitting.fit import (FitResult, _normalize_obs, _run_adam,
                                         fit_smpl_multistart, fit_smpl_single)
 from tpu_pose_torch.models.smpl_data import SMPLData
 from tpu_pose_torch.utils.config import FitConfig
+from tpu_pose_torch.utils.device import no_grad
 
 
 def warmstart_schedule(cfg: FitConfig, iters: int = 30) -> FitConfig:
@@ -230,9 +231,10 @@ def fit_video_smooth_tracks(model: SMPLData, joints2d: torch.Tensor,
             beta = beta[:, None].expand(kt, n, -1)
         return {"theta": theta, "beta": beta, "cam": cam}
 
-    def frame_energies(p):
+    def frame_energies(p, obs, conf, frame_mask, model, prior,
+                       capsule_spec):
         e = fit_energy({k: v.reshape(kt * n, -1) for k, v in p.items()},
-                       model, obs, flat_c, stage, cfg, prior,
+                       model, obs, conf, stage, cfg, prior,
                        capsule_spec).reshape(kt, n)
         # where(), not a product: a NaN/inf pad energy times 0 is NaN.
         return e if frame_mask is None else torch.where(frame_mask > 0, e,
@@ -242,11 +244,13 @@ def fit_video_smooth_tracks(model: SMPLData, joints2d: torch.Tensor,
                  if frame_mask is None
                  else frame_mask[:, 1:] * frame_mask[:, :-1])
 
-    def total_energy(x):
+    def total_energy(x, obs, conf, frame_mask, model, prior, capsule_spec,
+                     step_mask, anchor):
         p = split(x)
         dth = p["theta"][:, 1:] - p["theta"][:, :-1]
         dca = p["cam"][:, 1:] - p["cam"][:, :-1]
-        e = (frame_energies(p).sum()
+        e = (frame_energies(p, obs, conf, frame_mask, model, prior,
+                            capsule_spec).sum()
              + smooth_theta * s2 * (step_mask * (dth * dth).sum(-1)).sum()
              + smooth_cam * s2 * (step_mask * (dca * dca).sum(-1)).sum())
         if anchor is not None:
@@ -258,10 +262,13 @@ def fit_video_smooth_tracks(model: SMPLData, joints2d: torch.Tensor,
 
     x = torch.cat([base.theta.reshape(-1), beta0.reshape(-1),
                    base.cam.reshape(-1)]).to(torch.float32)
-    x, _ = _run_adam(total_energy, x, iters, lr)
+    # Every tensor the energy reads goes in args (fit._run_adam).
+    args = (obs, flat_c, frame_mask, model, prior, capsule_spec, step_mask,
+            anchor)
+    x, _ = _run_adam(total_energy, x, iters, lr, args=args)
     p = split(x)
-    with torch.no_grad():
-        energy = frame_energies(p)
+    with no_grad():
+        energy = frame_energies(p, *args[:6])
     return FitResult(theta=p["theta"], beta=p["beta"].contiguous(),
                      cam=p["cam"], energy=energy,
                      energy_history=torch.zeros(kt, 0, device=x.device))

@@ -406,14 +406,15 @@ def _refine_forward(c, dtype, images, trunk1, belief1, center_map, cfg,
 
 
 def _cat_channels(parts):
-    """``torch.cat(parts, dim=1)`` of NCHW tensors, written as NHWC memory
-    when the first part is (the int8 path, whose next conv's gather reads
-    NHWC in place): ``torch.cat`` alone picks NCHW when the parts' layouts
-    differ, as the broadcast center hint's does."""
-    if parts[0].permute(0, 2, 3, 1).is_contiguous():
-        return torch.cat([p.permute(0, 2, 3, 1) for p in parts],
-                         dim=3).permute(0, 3, 1, 2)
-    return torch.cat(parts, dim=1)
+    """``torch.cat(parts, dim=1)`` of NCHW tensors, written as NHWC memory,
+    the layout the CPM's convs keep (and the int8 path's gather reads in
+    place): ``torch.cat`` alone picks NCHW when the parts' layouts differ,
+    as the broadcast center hint's does. Unconditional, not read from the
+    parts' strides: a traced program (``export.py``) sees fake CUDA conv
+    outputs as NCHW, and its next conv would run another cuDNN kernel
+    than the live path's."""
+    return torch.cat([p.permute(0, 2, 3, 1) for p in parts],
+                     dim=3).permute(0, 3, 1, 2)
 
 
 def _refine_stages(c, dtype, f, belief1, cmap_lo, n_stages):

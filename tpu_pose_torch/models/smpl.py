@@ -87,7 +87,9 @@ def _world_transforms(rotmats: torch.Tensor, j_rest: torch.Tensor,
     local = _rigid(rotmats, t_local)
     worlds = [local[..., 0, :, :]]
     for k in range(1, num_j):
-        worlds.append(worlds[parent_idx[k]] @ local[..., k, :, :])
+        # bmm, what ``@`` runs on (B, 4, 4) operands, named directly: an
+        # export trace then skips matmul's shape logic, 23 times a chain.
+        worlds.append(torch.bmm(worlds[parent_idx[k]], local[:, k]))
     return torch.stack(worlds, dim=-3)
 
 

@@ -9,10 +9,15 @@ package builds into the user's cache directory. Nothing is built or
 imported when this module is imported: the CPU tests import it on
 machines with no ``nvcc``.
 
-Every wrapper owns its device route: for a CPU tensor it runs the plain
+Each kernel is also a ``torch.library`` custom op (``tpu_pose_torch::
+soft_argmax``, ``::act_scale``, ``::quantize_act``, ``::quantize_im2col``)
+with a fake implementation that gives only shapes and dtypes, so
+``torch.export`` records one node per call and an exported program
+launches the same kernels (``export.py``). Every wrapper calls its op,
+and the op owns the device route: for a CPU tensor it runs the plain
 PyTorch version; for a CUDA tensor it launches its kernel or raises — it
-never falls back. Each keeps a launch count (``wrapper.launches``) that
-only its kernel launch increments.
+never falls back. Each wrapper keeps a launch count
+(``wrapper.launches``) that only its kernel launch increments.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -118,20 +124,14 @@ def _check_launch(lib, name: str, rc: int) -> None:
             f"(cudaError {rc})")
 
 
-def soft_argmax_cuda(heatmaps: torch.Tensor, beta: float = 100.0,
-                     stride: int = 8):
-    """Soft-argmax decode, ``(B, H, W, P+1)`` float32 → joints
-    ``(B, P, 2)``, conf ``(B, P)``; the same function as
-    ``ops/softargmax.soft_argmax``. On a CUDA tensor it launches
-    ``csrc/soft_argmax.cu`` on the current stream (no synchronize); any
-    strides are taken, so the CPM's NHWC heatmaps (or an NHWC view of
-    NCHW memory) are read without a copy. On a CPU tensor it runs the
-    plain version."""
-    if heatmaps.device.type == "cpu":
-        return softargmax_lib.soft_argmax(heatmaps, beta=beta, stride=stride)
-    if heatmaps.device.type != "cuda":
-        raise ValueError(f"soft_argmax_cuda: unsupported device "
-                         f"{heatmaps.device}")
+
+
+# -- B1: soft-argmax decode ---------------------------------------------------
+
+def _soft_argmax_launch(heatmaps: torch.Tensor, beta: float,
+                        stride: float):
+    """Launch ``csrc/soft_argmax.cu`` on a CUDA tensor (the op's CUDA
+    kernel), counted in ``soft_argmax_cuda.launches``."""
     if heatmaps.dtype != torch.float32:
         raise TypeError(f"soft_argmax_cuda takes float32 heatmaps, got "
                         f"{heatmaps.dtype}")
@@ -159,12 +159,47 @@ def soft_argmax_cuda(heatmaps: torch.Tensor, beta: float = 100.0,
     return joints, conf
 
 
+@torch.library.custom_op("tpu_pose_torch::soft_argmax", mutates_args=())
+def _soft_argmax_op(heatmaps: torch.Tensor, beta: float, stride: float
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    return softargmax_lib.soft_argmax(heatmaps, beta=beta, stride=stride)
+
+
+_soft_argmax_op.register_kernel("cuda")(_soft_argmax_launch)
+
+
+@_soft_argmax_op.register_fake
+def _(heatmaps, beta, stride):
+    b, _, _, c = heatmaps.shape
+    return (heatmaps.new_empty((b, c - 1, 2)),
+            heatmaps.new_empty((b, c - 1)))
+
+
+def soft_argmax_cuda(heatmaps: torch.Tensor, beta: float = 100.0,
+                     stride: int = 8):
+    """Soft-argmax decode, ``(B, H, W, P+1)`` float32 → joints
+    ``(B, P, 2)``, conf ``(B, P)``; the same function as
+    ``ops/softargmax.soft_argmax``, through the op
+    ``tpu_pose_torch::soft_argmax``. On a CUDA tensor the op launches
+    ``csrc/soft_argmax.cu`` on the current stream (no synchronize); any
+    strides are taken, so the CPM's NHWC heatmaps (or an NHWC view of
+    NCHW memory) are read without a copy. On a CPU tensor it runs the
+    plain version."""
+    _device("soft_argmax_cuda", heatmaps)
+    return _soft_argmax_op(heatmaps, float(beta), float(stride))
+
+
 soft_argmax_cuda.launches = 0
 
 
-def _float_activation(name: str, x: torch.Tensor) -> None:
-    if x.device.type != "cuda":
+# -- B2: int8 activation quantization ----------------------------------------
+
+def _device(name: str, x: torch.Tensor) -> None:
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {x.device}")
+
+
+def _float_activation(name: str, x: torch.Tensor) -> None:
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name} takes float32 or bfloat16, got {x.dtype}")
     if x.numel() == 0:
@@ -177,28 +212,10 @@ def _dense(x: torch.Tensor) -> torch.Tensor:
     return x.clone() if x.data_ptr() % 16 else x
 
 
-def _static_scale(name: str, a_scale, device) -> torch.Tensor:
-    scale = torch.as_tensor(a_scale, dtype=torch.float32, device=device)
-    if scale.dim() != 0:
-        raise ValueError(f"{name}: the scale must be a scalar, got shape "
-                         f"{tuple(scale.shape)}")
-    return scale
-
-
-def act_scale_cuda(x: torch.Tensor, a_scale=None) -> torch.Tensor:
-    """The 0-d float32 per-tensor scale of ``x``; the same function as
-    ``ops/quantize.act_scale``, bit for bit: ``a_scale`` when given (no
-    launch), else ``max(max|x| / 127, 1e-12)`` over the whole tensor. On a
-    CUDA tensor (float32 or bf16) the dynamic scale is kernel B2's abs-max
-    pass (``csrc/quantize_act.cu``, counted in ``.launches``), on the
-    current stream, with no host sync; a non-contiguous input is read
-    through a contiguous copy. On a CPU tensor it runs the plain
-    version."""
-    if x.device.type == "cpu":
-        return quantize_lib.act_scale(x, a_scale)
+def _act_scale_launch(x: torch.Tensor) -> torch.Tensor:
+    """B2's abs-max pass on a CUDA tensor (the op's CUDA kernel), counted
+    in ``act_scale_cuda.launches``."""
     _float_activation("act_scale_cuda", x)
-    if a_scale is not None:
-        return _static_scale("act_scale_cuda", a_scale, x.device)
     x = _dense(x)
     scale = torch.zeros((), dtype=torch.float32, device=x.device)
     lib = _library("quantize_act")
@@ -212,24 +229,51 @@ def act_scale_cuda(x: torch.Tensor, a_scale=None) -> torch.Tensor:
     return scale
 
 
+@torch.library.custom_op("tpu_pose_torch::act_scale", mutates_args=())
+def _act_scale_op(x: torch.Tensor) -> torch.Tensor:
+    return quantize_lib.act_scale(x)
+
+
+_act_scale_op.register_kernel("cuda")(_act_scale_launch)
+
+
+@_act_scale_op.register_fake
+def _(x):
+    return x.new_empty((), dtype=torch.float32)
+
+
+def act_scale_cuda(x: torch.Tensor, a_scale=None) -> torch.Tensor:
+    """The 0-d float32 per-tensor scale of ``x``; the same function as
+    ``ops/quantize.act_scale``, bit for bit: ``a_scale`` when given (no
+    launch), else ``max(max|x| / 127, 1e-12)`` over the whole tensor,
+    through the op ``tpu_pose_torch::act_scale``. On a CUDA tensor
+    (float32 or bf16) the dynamic scale is kernel B2's abs-max pass
+    (``csrc/quantize_act.cu``, counted in ``.launches``), on the current
+    stream, with no host sync; a non-contiguous input is read through a
+    contiguous copy. On a CPU tensor it runs the plain version."""
+    _device("act_scale_cuda", x)
+    return _scale(x, a_scale)
+
+
 act_scale_cuda.launches = 0
 
 
-def quantize_act_cuda(x: torch.Tensor, a_scale=None):
-    """Symmetric per-tensor int8 quantization, ``(int8 values in x's
-    shape, 0-d float32 scale)``; the same function as
-    ``ops/quantize.quantize_act``, bit for bit. ``a_scale``: a calibrated
-    static scale (0-d float32 tensor), or None for the dynamic abs-max
-    scale (:func:`act_scale_cuda`). On a CUDA tensor (float32 or bf16) it
-    launches kernel B2's quantize pass (``csrc/quantize_act.cu``, counted
-    in ``.launches``) on the current stream, no host sync. A
-    non-contiguous input is made contiguous first. On a CPU tensor it runs
-    the plain version."""
-    if x.device.type == "cpu":
-        return quantize_lib.quantize_act(x, a_scale)
+def _scale(x: torch.Tensor, a_scale) -> torch.Tensor:
+    if a_scale is not None:
+        scale = torch.as_tensor(a_scale, dtype=torch.float32, device=x.device)
+        if scale.dim() != 0:
+            raise ValueError(f"act_scale_cuda: the scale must be a scalar, "
+                             f"got shape {tuple(scale.shape)}")
+        return scale
+    return _act_scale_op(x)
+
+
+def _quantize_launch(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """B2's quantize pass on a CUDA tensor (the op's CUDA kernel), counted
+    in ``quantize_act_cuda.launches``."""
     _float_activation("quantize_act_cuda", x)
+    _check_scale("quantize_act_cuda", scale, x)
     x = _dense(x)
-    scale = act_scale_cuda(x, a_scale)
     q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     lib = _library("quantize_act")
     with torch.cuda.device(x.device):
@@ -239,7 +283,36 @@ def quantize_act_cuda(x: torch.Tensor, a_scale=None):
                                 stream)
     _check_launch(lib, "quantize_act", rc)
     quantize_act_cuda.launches += 1
-    return q, scale
+    return q
+
+
+@torch.library.custom_op("tpu_pose_torch::quantize_act", mutates_args=())
+def _quantize_op(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return quantize_lib._quantize(x, scale)
+
+
+_quantize_op.register_kernel("cuda")(_quantize_launch)
+
+
+@_quantize_op.register_fake
+def _(x, scale):
+    return torch.empty_like(x, dtype=torch.int8,
+                            memory_format=torch.contiguous_format)
+
+
+def quantize_act_cuda(x: torch.Tensor, a_scale=None):
+    """Symmetric per-tensor int8 quantization, ``(int8 values in x's
+    shape, 0-d float32 scale)``; the same function as
+    ``ops/quantize.quantize_act``, bit for bit. ``a_scale``: a calibrated
+    static scale (0-d float32 tensor), or None for the dynamic abs-max
+    scale (:func:`act_scale_cuda`). The values come from the op
+    ``tpu_pose_torch::quantize_act``: on a CUDA tensor (float32 or bf16)
+    kernel B2's quantize pass (``csrc/quantize_act.cu``, counted in
+    ``.launches``) on the current stream, no host sync, a non-contiguous
+    input made contiguous first; on a CPU tensor the plain version."""
+    _device("quantize_act_cuda", x)
+    scale = _scale(x, a_scale)
+    return _quantize_op(x, scale), scale
 
 
 quantize_act_cuda.launches = 0
@@ -247,24 +320,17 @@ quantize_act_cuda.launches = 0
 _IM2COL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
-def quantize_im2col_cuda(x: torch.Tensor, scale, k: int, tile,
-                         out: torch.Tensor) -> torch.Tensor:
-    """Kernel B2 fused with the im2col gather: fill ``out`` (m, K_pad)
-    int8 with the quantized im2col rows of the tile ``(b0, b1, h0, h1)``
-    of a SAME, stride-1 ``k×k`` conv over ``x`` (B, H, W, C), and return
-    it; the same function as ``ops/quantize.quantize_im2col``, bit for
-    bit. ``x`` is float32 or bf16 with the 0-d float32 ``scale`` of the
-    whole tensor, or int8 values with ``scale`` None. On a CUDA tensor it
-    launches ``csrc/quantize_act.cu``'s gather on the current stream
-    (counted in ``.launches``), reading ``x`` through its strides, which
-    must give the channels a unit stride: the int8 path's NHWC views are
-    read without a copy, and anything else raises. On a CPU tensor it runs
-    the plain version."""
-    if x.device.type == "cpu":
-        return quantize_lib.quantize_im2col(x, scale, k, tile, out)
-    if x.device.type != "cuda":
-        raise ValueError(f"quantize_im2col_cuda: unsupported device "
-                         f"{x.device}")
+def _check_scale(name: str, scale: torch.Tensor, x: torch.Tensor) -> None:
+    if (scale.device != x.device or scale.dim() != 0
+            or scale.dtype != torch.float32):
+        raise ValueError(f"{name}: the scale must be a 0-d float32 tensor "
+                         f"on x's device")
+
+
+def _im2col_launch(x: torch.Tensor, scale, k: int, tile,
+                   out: torch.Tensor) -> None:
+    """The fused quantize-and-gather on CUDA tensors (the op's CUDA
+    kernel), counted in ``quantize_im2col_cuda.launches``."""
     if x.dtype not in _IM2COL_DTYPES:
         raise TypeError(f"quantize_im2col_cuda takes float32, bfloat16 or "
                         f"int8, got {x.dtype}")
@@ -275,16 +341,14 @@ def quantize_im2col_cuda(x: torch.Tensor, scale, k: int, tile,
     if (x.dtype == torch.int8) != (scale is None):
         raise ValueError("quantize_im2col_cuda: a scale goes with float "
                          "input, none with int8 input")
-    if scale is not None and (scale.device != x.device or scale.dim() != 0
-                              or scale.dtype != torch.float32):
-        raise ValueError("quantize_im2col_cuda: the scale must be a 0-d "
-                         "float32 tensor on x's device")
+    if scale is not None:
+        _check_scale("quantize_im2col_cuda", scale, x)
     b, h, w, c = x.shape
     b0, b1, h0, h1 = tile
     m = (b1 - b0) * (h1 - h0) * w
     if not (0 <= b0 < b1 <= b and 0 <= h0 < h1 <= h and k % 2 == 1):
-        raise ValueError(f"quantize_im2col_cuda: tile {tile} of a {k}x{k} "
-                         f"conv does not fit {tuple(x.shape)}")
+        raise ValueError(f"quantize_im2col_cuda: tile {tuple(tile)} of a "
+                         f"{k}x{k} conv does not fit {tuple(x.shape)}")
     if (out.device != x.device or out.dtype != torch.int8 or out.dim() != 2
             or out.shape[0] != m or not 0 <= out.shape[1] - k * k * c < 8
             or out.shape[1] % 8 or not out.is_contiguous()
@@ -303,6 +367,40 @@ def quantize_im2col_cuda(x: torch.Tensor, scale, k: int, tile,
             stream)
     _check_launch(lib, "quantize_act", rc)
     quantize_im2col_cuda.launches += 1
+
+
+@torch.library.custom_op("tpu_pose_torch::quantize_im2col",
+                         mutates_args=("out",))
+def _im2col_op(x: torch.Tensor, scale: Optional[torch.Tensor], k: int,
+               tile: list[int], out: torch.Tensor) -> None:
+    quantize_lib.quantize_im2col(x, scale, k, tuple(tile), out)
+
+
+_im2col_op.register_kernel("cuda")(_im2col_launch)
+
+
+@_im2col_op.register_fake
+def _(x, scale, k, tile, out):
+    return None
+
+
+def quantize_im2col_cuda(x: torch.Tensor, scale, k: int, tile,
+                         out: torch.Tensor) -> torch.Tensor:
+    """Kernel B2 fused with the im2col gather: fill ``out`` (m, K_pad)
+    int8 with the quantized im2col rows of the tile ``(b0, b1, h0, h1)``
+    of a SAME, stride-1 ``k×k`` conv over ``x`` (B, H, W, C), and return
+    it; the same function as ``ops/quantize.quantize_im2col``, bit for
+    bit, through the op ``tpu_pose_torch::quantize_im2col``, which writes
+    ``out`` in place (the caller's buffer is reused from tile to tile).
+    ``x`` is float32 or bf16 with the 0-d float32 ``scale`` of the whole
+    tensor, or int8 values with ``scale`` None. On a CUDA tensor the op
+    launches ``csrc/quantize_act.cu``'s gather on the current stream
+    (counted in ``.launches``), reading ``x`` through its strides, which
+    must give the channels a unit stride: the int8 path's NHWC views are
+    read without a copy, and anything else raises. On a CPU tensor it runs
+    the plain version."""
+    _device("quantize_im2col_cuda", x)
+    _im2col_op(x, scale, int(k), [int(t) for t in tile], out)
     return out
 
 

@@ -16,10 +16,13 @@ argparse, with the same flags, ``results.json`` keys and ``--device``):
    PCKh and OKS) and 10. the 3DPW-style chain (SMPL ground truth →
    shards → PVE); both write JPEGs through PIL.
 
-The deployment-artifact round trip of the JAX tool (its section 8) is not
-part of this port yet. Every section is a function of the weights and
-data it needs (and a :class:`Run`, which holds the configuration, the
-results and the log); :func:`main` calls them in order.
+8. the deployment artifact (``export.py``): the trained fused path
+   exported at the eval batch, loaded with no estimator, and held against
+   the live estimator on the same frames;
+
+Every section is a function of the weights and data it needs (and a
+:class:`Run`, which holds the configuration, the results and the log);
+:func:`main` calls them in order.
 
   python -m tpu_pose_torch.tools.selfcheck_e2e --steps 800 --out selfcheck
 
@@ -639,6 +642,38 @@ def hard_section(run: Run, prior) -> None:
     hard_k3_section(run, est_mh)
 
 
+
+# -- 8. deployment artifact --------------------------------------------------
+
+def export_section(run: Run, cpm, ex: dict) -> None:
+    """Section 8: the trained fused path exported (``export.py``: the
+    weights in the program) at the eval batch, loaded with no estimator
+    in scope, and held against the live estimator on the same eval
+    frames — the ship-an-artifact story with trained weights on the
+    device. ``ok``: Δjoints2d < 0.5 px and Δθ < 0.05, the JAX tool's
+    rule."""
+    from tpu_pose_torch import export as pexport
+    run.log("exporting deployment artifact (trained weights)...")
+    art_dir = os.path.join(run.args.out, "artifact")
+    imgs = ex["images"]
+    est_dep = run.estimator(cpm)
+    pexport.export_estimator(est_dep, art_dir, fn="estimate_and_fit",
+                             batch=int(imgs.shape[0]))
+    del est_dep
+    out_art = pexport.load(art_dir)(imgs)
+    live = run.estimator(cpm).estimate_and_fit(imgs)
+    d_j2d = float(np.max(np.abs(out_art["joints2d"] - _np(live.joints2d))))
+    d_th = float(np.max(np.abs(out_art["theta"] - _np(live.theta))))
+    run.results["export_artifact"] = {
+        "program_mb": round(os.path.getsize(
+            os.path.join(art_dir, "program.pt2")) / 1e6, 1),
+        "max_d_joints2d_px": d_j2d, "max_d_theta": d_th,
+        "ok": bool(d_j2d < 0.5 and d_th < 0.05)}
+    run.log(f"artifact round-trip: Δjoints2d {d_j2d:.3g} px, Δθ "
+            f"{d_th:.3g} → "
+            f"{'OK' if run.results['export_artifact']['ok'] else 'MISMATCH'}")
+
+
 # -- 9. dataset-adapter chain ------------------------------------------------
 
 def dataset_chain_estimator(run: Run, cpm) -> PoseEstimator:
@@ -786,6 +821,7 @@ def main(argv=None) -> Optional[dict]:
     multi_section(run, cpm, prior)
     if args.hard_steps > 0:
         hard_section(run, prior)
+    export_section(run, cpm, ex)
     est_ds = dataset_chain_estimator(run, cpm)
     lsp_chain_section(run, est_ds)
     threedpw_chain_section(run, est_ds)

@@ -1,10 +1,14 @@
 """Serve the fused pipeline over HTTP (``tpu_pose_torch/serving_http.py``):
 micro-batched ``POST /predict`` (or ``/fit``), with ``/healthz``,
 ``/stats`` and Prometheus ``/metrics``. Port of ``tpu_pose/tools/
-serve.py`` on argparse, with the same flags except ``--artifact``.
+serve.py`` on argparse, with the same flags.
 
   # synthetic weights (no --cpm_npz), on the GPU:
   python -m tpu_pose_torch.tools.serve --port 8080
+
+  # artifact-only serving host (tpu-pose-torch-export wrote the artifact;
+  # no model code or weights needed):
+  python -m tpu_pose_torch.tools.serve --artifact /srv/pose_artifact
 
   # converted weights, int8 CPM for large batches:
   tpu-pose-torch-serve --cpm_npz w.npz --smpl_pkl smpl.pkl \\
@@ -34,8 +38,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(
         prog="tpu-pose-torch-serve",
         description="Serve tpu_pose_torch's fused pipeline over HTTP.")
+    p.add_argument("--artifact", default="", help="deployment artifact "
+                   "directory (tpu_pose_torch/export.py): serve it with no "
+                   "model code or weights; --fn must match its exported fn")
     p.add_argument("--cpm_npz", default="", help="converted CPM weights "
-                   "(.npz); synthetic weights if empty")
+                   "(.npz); synthetic weights if empty and no --artifact")
     p.add_argument("--smpl_pkl", default="", help="SMPL model pickle")
     p.add_argument("--gmm_pkl", default="", help="GMM pose-prior pickle "
                    "(optional)")
@@ -73,14 +80,20 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> None:
     args = parse_args(argv)
-    from tpu_pose_torch.api import PoseEstimator
     from tpu_pose_torch.serving_http import PoseHTTPServer
 
-    if args.cpm_npz and args.smpl_pkl:
+    if args.artifact:
+        from tpu_pose_torch.export import ServableProgram
+        est = ServableProgram(args.artifact)
+        print(f"serving artifact {args.artifact} (fn={est.fn}, platforms="
+              f"{est.program.platforms})", flush=True)
+    elif args.cpm_npz and args.smpl_pkl:
+        from tpu_pose_torch.api import PoseEstimator
         est = PoseEstimator.from_files(
             args.cpm_npz, args.smpl_pkl, args.gmm_pkl or None,
             quantize=args.quantize, letterbox=True, device=args.device)
     else:
+        from tpu_pose_torch.api import PoseEstimator
         print("note: no weights supplied — synthetic estimator "
               "(smoke-test mode)", flush=True)
         est = PoseEstimator.create_synthetic(
@@ -92,9 +105,11 @@ def main(argv=None) -> None:
         fields = tuple(f for f in args.fields.split(",") if f)
     else:
         fields = DEFAULT_FIELDS[args.fn]
+    # An artifact bakes the multi-person knobs at export time.
     fn_kwargs = ({"max_people": args.max_people,
                   "allow_empty": args.allow_empty}
-                 if args.fn == "estimate_and_fit_multi" else None)
+                 if args.fn == "estimate_and_fit_multi" and not args.artifact
+                 else None)
     srv = PoseHTTPServer(est, host=args.host, port=args.port,
                          max_batch=args.max_batch,
                          max_wait_ms=args.max_wait_ms,

@@ -38,12 +38,12 @@ port's dependencies (torch, numpy). It
 8. drives the accuracy front end (letterbox, refine_scale, flip and
    scale TTA) through ``estimate_and_fit`` on (8, 480, 640, 3) frames
    (``front_end_main_path``, 12 B1 launches per call, and its
-   ``front_end_breakdown``); the single-person video path at T = 64 with
+   ``front_end_breakdown``); the single-person video path at T = 32 with
    4 yaw hypotheses (``video_main_path``, smooth; ``video_modes``,
    temporal and independent), the int8 video path (``video_int8``:
    ``quantize=True``, ``cpm_microbatch=16``, refine_scale, its B1 and B2
    launches against the computed counts, no non-NHWC conv input), and
-   the stream form against ``VideoSession`` over 80 frames
+   the stream form against ``VideoSession`` over 48 frames
    (``video_stream``); then holds the GPU front end and video paths
    against the CPU ones on a small float32 model
    (``front_end_small_reference``, ``video_small_reference``);
@@ -52,10 +52,10 @@ port's dependencies (torch, numpy). It
    (``multi_main_path``), with letterbox, refine_scale and flip on
    (8, 480, 640, 3) frames and three slots (``multi_front_end``), and int8
    at batch 16 (``multi_int8``, B2 on the 32-hypothesis fold);
-   ``estimate_and_fit_video_multi`` at T = 64 with 4 yaw hypotheses
-   (``video_multi_main_path``) and with every knob at T = 32
+   ``estimate_and_fit_video_multi`` at T = 32 with 4 yaw hypotheses
+   (``video_multi_main_path``) and with every knob at T = 16
    (``video_multi_knobs``); the stream form against
-   ``MultiPersonVideoSession`` over 80 frames (``video_multi_stream``);
+   ``MultiPersonVideoSession`` over 48 frames (``video_multi_stream``);
    each with B1's (and B2's) launches against the computed counts; then
    holds them against the CPU on a small float32 model
    (``multi_small_reference``);
@@ -68,7 +68,7 @@ port's dependencies (torch, numpy). It
 11. builds the native host letterbox (``g++``) and holds it within 1
    LSB of the numpy path on camera frames (``native_letterbox_check``);
    serves the bf16 estimator over HTTP (``serving_main_path``: one
-   bucket-8 batch against a direct call, then 48 mixed-resolution frames
+   bucket-8 batch against a direct call, then 24 mixed-resolution frames
    from 8 client threads, closed loop and open loop at half the measured
    capacity, and from 16 closed-loop threads, with the pipeline's
    readiness check on and off, one B1 launch per batch),
@@ -119,13 +119,24 @@ port's dependencies (torch, numpy). It
    as the live sessions); the GPU artifact against the CPU artifact of a
    small model (``export_small_reference``); and the selfcheck's section
    8 inside ``selfcheck_main_path``;
-15. prints a ``{"kernels": [...]}`` line and, last,
+15. runs the parity harness's tools: where tensorflow imports, writes
+   the full-width CPM's weights as TF1 checkpoints in each naming style
+   and converts them back bit for bit (``tf_converter_check``, else one
+   line that says it skipped); the parity-sweep CLI on the full-size
+   synthetic SMPL with the oracle's gmof_sigma mismatched
+   (``parity_sweep_main_path``); and the day-one CLI on a reference
+   directory fabricated from the full-width weights and the full-size
+   SMPL (``day_one_main_path``: the port's L-BFGS certification on the
+   card against the float64 host oracle within 1 mm, then the smoke
+   eval, B1 once per batch);
+16. prints a ``{"kernels": [...]}`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Every phase prints one JSON object per line. Any failed check raises, so
 the script exits non-zero and prints no result line. Without CUDA it
 exits 2 at once. It imports torch, numpy, the standard library and
-``tpu_pose_torch`` only.
+``tpu_pose_torch``, and scipy and tensorflow inside the phases that
+write the reference's files.
 """
 
 from __future__ import annotations
@@ -140,6 +151,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import warnings
@@ -174,7 +186,8 @@ from tpu_pose_torch.ops import quantize as quantize_lib
 from tpu_pose_torch.ops import softargmax as softargmax_lib
 from tpu_pose_torch.parallel import eval as eval_lib
 from tpu_pose_torch.serving_http import PoseHTTPServer
-from tpu_pose_torch.tools import (demo, hard_sweep, profile_entry,
+from tpu_pose_torch.tools import (demo, hard_sweep, parity_sweep,
+                                  profile_entry, reference_day_one,
                                   selfcheck_e2e, track_bench)
 from tpu_pose_torch.utils import checkpoint
 from tpu_pose_torch.utils import metrics as metrics_lib
@@ -214,7 +227,14 @@ QUANT_TIMED = ("stage_46x46x128_bf16", "head_46x46x512_bf16")
 QUANT_KERNEL_ROW = "stage_46x46x128_bf16"   # 10 of the 12 1×1 convs
 
 
+_T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries ``t_s``, the script's
+    seconds when it was printed."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - _T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -618,14 +638,15 @@ def phase_breakdown(est: PoseEstimator, images: np.ndarray) -> None:
 
 
 def phase_profile(est: PoseEstimator, images: np.ndarray) -> None:
-    """One estimate_and_fit call under torch.profiler: device time by
-    kernel and the device's busy share of the wall time (the profiler's
-    own overhead lengthens the wall time, so the share is a lower
-    bound). Reports "not measured" if the trace holds no device time."""
+    """One estimate_and_fit call under torch.profiler, device activity
+    only (what the rows read; tracing every host operator too took ≈ 40 s
+    for the call's 65,815 launches): device time by kernel and the
+    device's busy share of the wall time (the profiler's own overhead
+    lengthens the wall time, so the share is a lower bound). Reports
+    "not measured" if the trace holds no device time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         est.estimate_and_fit(images)
         torch.cuda.synchronize()
@@ -1176,10 +1197,10 @@ FRONT_END_B1 = 2 * (1 + len(FRONT_END["scale_tta"])) * 2
 # centered zoom per TTA scale.
 FRONT_END_CROPS = (1 + len(FRONT_END["scale_tta"])) * 2 \
     + len(FRONT_END["scale_tta"])
-VIDEO_T = 64                      # BASELINE.json configuration 4
+VIDEO_T = 32                      # BASELINE.json configuration 4: 64
 TEMPORAL_T = 16                   # temporal mode's frames (sequential fits)
 VIDEO_RESTARTS = 4
-STREAM_T, STREAM_CHUNK, STREAM_PUSH = 80, 32, 7
+STREAM_T, STREAM_CHUNK, STREAM_PUSH = 48, 32, 7
 
 
 def _smooth_frames(t: int, h: int, w: int, seed: int) -> np.ndarray:
@@ -1311,8 +1332,9 @@ def phase_front_end_breakdown(est: PoseEstimator,
 
 
 def phase_video_main_path(est: PoseEstimator, frames: np.ndarray) -> dict:
-    """estimate_and_fit_video(mode="smooth") over T = 64 frames with 4
-    yaw hypotheses per frame (BASELINE.json configuration 4): one
+    """estimate_and_fit_video(mode="smooth") over VIDEO_T frames with 4
+    yaw hypotheses per frame (BASELINE.json configuration 4, cut from
+    T = 64 to 32): one
     warm-up and two timed calls, launch counts zeroed before and read
     after (one B1 launch per call: the CPM runs the 64 frames at once);
     then the CPM and the fit one at a time."""
@@ -1369,7 +1391,7 @@ def _not_nhwc_conv_inputs(est: PoseEstimator, call) -> list:
 
 def phase_video_int8(est: PoseEstimator, frames: np.ndarray) -> dict:
     """The int8 video path: quantize=True, 8 calibration frames,
-    cpm_microbatch=16, refine_scale, smooth mode, T = 64. One warm-up and
+    cpm_microbatch=16, refine_scale, smooth mode, T = VIDEO_T. One warm-up and
     one timed call with the counts zeroed before and read after, held
     against the computed launches: per chunk of 16, B1 twice (geometry
     and final decode), B2's quantize passes and gathers with stage 1
@@ -1446,8 +1468,8 @@ DRIVEN_THETA = [i for i in range(72) if i not in LEAF_THETA]
 
 
 def phase_video_stream(est: PoseEstimator, frames: np.ndarray) -> None:
-    """estimate_and_fit_video_stream(chunk=32) over 80 frames (two full
-    windows and one padded), and a VideoSession(chunk=32) fed the same
+    """estimate_and_fit_video_stream(chunk=32) over STREAM_T frames (one
+    full window and one padded), and a VideoSession(chunk=32) fed the same
     frames in pushes of 7, then flush(): the same windows and anchors, so
     the two agree (joints2d within 1e-3 px, joints3d and vertices within
     1 mm; the fits' float sums on the card are not bitwise repeatable)."""
@@ -1587,7 +1609,7 @@ def phase_video_small_reference() -> None:
 MULTI_PEOPLE = 2
 MULTI_FRONT_END = dict(letterbox=True, refine_scale=True, flip_tta=True)
 MULTI_FRONT_END_PEOPLE = 3
-VIDEO_MULTI_T, VIDEO_MULTI_KNOBS_T = 64, 32
+VIDEO_MULTI_T, VIDEO_MULTI_KNOBS_T = 32, 16
 # Every knob of the tracked path: B1 runs once for the NMS pass, then per
 # hint pass once for the hinted decode and once for its hint-centered crop.
 VIDEO_MULTI_KNOBS = dict(hint_passes=2, hint_crop=True,
@@ -1697,8 +1719,8 @@ def phase_multi_int8(est: PoseEstimator, images: np.ndarray) -> dict:
 
 def phase_video_multi_main_path(est: PoseEstimator,
                                 frames: np.ndarray) -> dict:
-    """estimate_and_fit_video_multi over T = 64 frames, two people,
-    ``fit_restarts`` yaw hypotheses per frame and track (2·64·4 = 512
+    """estimate_and_fit_video_multi over T = VIDEO_MULTI_T frames, two
+    people, ``fit_restarts`` yaw hypotheses per frame and track (2·T·4
     hypothesis fits), temporal hints: one warm-up and two timed calls,
     counts zeroed before and read after (B1 twice per call: the NMS pass
     and the hinted pass); then one multi pass, the tracker and the
@@ -1764,7 +1786,8 @@ def phase_video_multi_main_path(est: PoseEstimator,
 
 
 def phase_video_multi_knobs(est: PoseEstimator, frames: np.ndarray) -> dict:
-    """estimate_and_fit_video_multi with every knob over T = 32 frames:
+    """estimate_and_fit_video_multi with every knob over T =
+    VIDEO_MULTI_KNOBS_T frames:
     one call, counts zeroed before and read after; B1 five times (the NMS
     pass, then two hint passes each with its hint-centered crop)."""
     t, k = frames.shape[0], MULTI_PEOPLE
@@ -1789,8 +1812,8 @@ def phase_video_multi_knobs(est: PoseEstimator, frames: np.ndarray) -> dict:
 
 
 def phase_video_multi_stream(est: PoseEstimator, frames: np.ndarray) -> dict:
-    """estimate_and_fit_video_multi_stream(chunk=32) over 80 frames (two
-    full windows and one padded) and a MultiPersonVideoSession(chunk=32)
+    """estimate_and_fit_video_multi_stream(chunk=32) over STREAM_T frames
+    (one full window and one padded) and a MultiPersonVideoSession(chunk=32)
     fed the same frames in pushes of 7, then flush(): the same windows and
     carries, so identical perm and frame_mask, joints3d within 1 mm (the
     fits' float sums on the card are not bitwise repeatable)."""
@@ -2121,7 +2144,8 @@ SERVE_LOAD_FRAMES = 24
 # The loads with the readiness check off run on the first half of the
 # frames: they take ≈ 2.5× the time per frame of the loads with it on
 # (17 small batches), and the script's time limit binds (cut from 48 and
-# 24 frames to make room for the export phases).
+# 24 frames to make room for the export phases). At 8 frames for 8
+# clients the loads degenerate into one batch each, so no comparison.
 SERVE_LOAD_FRAMES_OFF = 12
 SERVE_CLIENTS = 8                  # client threads of the load
 LETTERBOX_HW = ((480, 640), (720, 1280), (1080, 1920))
@@ -2301,13 +2325,13 @@ def phase_serving_main_path(est: PoseEstimator) -> dict:
     Exactness: one /predict_batch of 8 network-sized frames forms one
     bucket-8 batch, held against a direct estimate_and_fit on the same
     frames (tests/test_torch_api.py's bf16 bounds: joints2d 8 px, joints3d
-    25 mm), the gap reported. Load: 48 mixed-resolution frames from 8
-    client threads (one B1 per batch), closed loop, then open loop at
-    half the capacity (8 frames per direct call; requests arrive during
-    a launch), then from 16 closed-loop threads (a full batch queues
-    during each launch), each with the pipeline's readiness check on and
-    (on the first SERVE_LOAD_FRAMES_OFF frames) off, beside a direct
-    call's seconds at bucket 8."""
+    25 mm), the gap reported. Load: SERVE_LOAD_FRAMES mixed-resolution
+    frames from 8 client threads (one B1 per batch), closed loop, then
+    open loop at half the capacity (8 frames per direct call; requests
+    arrive during a launch), then from 16 closed-loop threads (a full
+    batch queues during each launch), each with the pipeline's readiness
+    check on and (on the first SERVE_LOAD_FRAMES_OFF frames) off, beside
+    a direct call's seconds at bucket 8."""
     size = est.cpm_cfg.input_size
     frames = _frames(SERVE_BATCH, size, size, seed=21)
     direct, direct_s = _timed_calls(lambda: est.estimate_and_fit(frames), 3)
@@ -2884,7 +2908,7 @@ SC_KEYS = ("train_final_loss", "fused_random_weights",
 HARD_DATA_FRAMES = 32
 TRACK_FRAMES = 26                  # track_bench's default --frames
 SWEEP_GRID = "plain:20:2:0.0,union:20:2:0.35:0:0:1:2"
-PROFILE_CALLS = 2 + 2 + 1          # Timer warm-up, timed iterations, FLOPs
+PROFILE_CALLS = 2 + 1 + 1          # Timer warm-up, timed iterations, FLOPs
 # demo --synthetic frames: the single-person demo rasterizes a mesh overlay
 # per frame in host numpy (≈ 6 s a frame at 368²), so it runs 2 frames;
 # --multi, which draws skeletons only, 8.
@@ -3164,7 +3188,7 @@ def phase_tools_main_path() -> dict:
     """demo --synthetic (DEMO_FRAMES; one estimate_and_fit call: fits.npz,
     a mesh OBJ, skeleton and mesh overlays per frame) and with --multi
     (DEMO_MULTI_FRAMES; an OBJ per kept person); profile_entry --fn
-    estimate_and_fit --batch 8 --iters 2 and --fn fit_smpl, whose flops
+    estimate_and_fit --batch 8 --iters 1 and --fn fit_smpl, whose flops
     must equal FlopCounterMode's count of one call, and --quantize --fn
     estimate_2d --batch 16 (int8, dynamic scales: B2 per call as
     int8_launches computes); every run with the counts zeroed before (B1
@@ -3206,7 +3230,7 @@ def phase_tools_main_path() -> dict:
     for name, (extra, ref, b1, b2) in runs.items():
         fn = name.replace("_int8", "")
         rec, counts, sec = _counted(lambda: profile_entry.main(
-            ["--fn", fn, "--iters", "2", "--device", DEVICE] + extra))
+            ["--fn", fn, "--iters", "1", "--device", DEVICE] + extra))
         want = {**B2_NONE, "soft_argmax": b1 * PROFILE_CALLS,
                 **{k: v * PROFILE_CALLS for k, v in b2.items()}}
         check(counts == want, f"profile_entry {name}: launched {counts}, "
@@ -3296,7 +3320,7 @@ def phase_hard_small_reference() -> None:
 # -- deployment artifacts (ROADMAP A.17) --------------------------------------
 
 EXPORT_OUT = "build/chip_smoke_export"    # gitignored; removed at the end
-EXPORT_STREAM_CHUNK, EXPORT_STREAM_T = 16, 40   # two full windows + 8
+EXPORT_STREAM_CHUNK, EXPORT_STREAM_T = 16, 24   # one full window + 8
 # Section 8's rule (the JAX tool's): the artifact against the live call.
 ARTIFACT_J2D_PX, ARTIFACT_THETA, ARTIFACT_MPJPE_MM = 0.5, 0.05, 1.0
 EXPORT_LOAD_LIMIT_S = 60.0   # the main artifact's export + save + load
@@ -3552,7 +3576,7 @@ def _session_outputs(session, frames: np.ndarray, to_numpy) -> list:
 
 def phase_export_streams(est: PoseEstimator) -> dict:
     """Both streaming artifacts of ``est`` (an :func:`export_estimator_of`)
-    at chunk 16 over 40 frames (two full windows and a padded one), pushed
+    at chunk 16 over 24 frames (one full window and a padded one), pushed
     7 frames at a time:
     ``ArtifactVideoSession`` of ``export_video_stream`` against
     ``VideoSession``, and of ``export_video_multi_stream`` against
@@ -3699,6 +3723,296 @@ def phase_export_small_reference() -> None:
           "gap": gap, "ok": ok})
     check(ok, f"GPU artifact vs CPU artifact: {gap}")
 
+# -- the parity harness, the TF converter and their CLIs (ROADMAP A.20) -------
+
+# The day-one CLI's certification probe frames and smoke-eval frames: two
+# batches of run_day_one's default eval batch, on the full-size SMPL.
+DAY_ONE_ARGS = ["--frames", "2", "--eval_frames", "8"]
+DAY_ONE_EVAL_BATCH = 4
+DAY_ONE_VERTS = smpl_data_lib.NUM_VERTS
+DAY_ONE_TIMEOUT_S = 900.0
+# tests/test_parity.py's sweep case: the oracle's gmof_sigma mismatched.
+PARITY_SWEEP_ARGS = ["--sweep", "--frames", "2", "--passes", "1",
+                     "--oracle_sigma", "40"]
+# tests/test_parity.py's stage-parity bounds (m, px, relative).
+STAGE_PARITY_BOUNDS = {"smpl_verts_max_m": 1e-5, "smpl_joints_max_m": 1e-5,
+                       "decode_max_px": 0.0, "decode_conf_max": 1e-6,
+                       "projection_max_px": 1e-3, "energy_rel_err": 1e-5}
+TF_STYLES = {"slim": ("{}/weights", "{}/biases"),
+             "layers": ("{}/kernel", "{}/bias"),
+             "plain": ("{}_W", "{}_b")}
+
+
+class ChumpyLike:
+    """The real SMPL pickle wraps several tensors in chumpy arrays, whose
+    dense payload is the ``.r`` attribute (what ``load_smpl_pickle``
+    unwraps)."""
+
+    def __init__(self, value):
+        self.r = np.asarray(value)
+
+
+def write_smpl_pickle(path: str, model) -> None:
+    """``model``'s tensors in the real SMPL pickle schema: chumpy
+    wrappers, a scipy-sparse J_regressor, a (2, 24) uint32 kintree_table
+    with the 4294967295 root sentinel, uint32 faces, protocol 2."""
+    import pickle
+
+    import scipy.sparse
+    arrays = model.to_numpy()
+    parents = np.asarray(arrays["parents"], np.int64)
+    kintree = np.stack([parents.astype(np.uint32),
+                        np.arange(len(parents), dtype=np.uint32)])
+    kintree[0, 0] = np.uint32(4294967295)
+    dd = {"v_template": ChumpyLike(arrays["v_template"].astype(np.float64)),
+          "shapedirs": ChumpyLike(arrays["shapedirs"].astype(np.float64)),
+          "posedirs": ChumpyLike(arrays["posedirs"].astype(np.float64)),
+          "J_regressor": scipy.sparse.csc_matrix(
+              arrays["J_regressor"].astype(np.float64)),
+          "weights": ChumpyLike(arrays["weights"].astype(np.float64)),
+          "kintree_table": kintree,
+          "f": np.asarray(arrays["faces"], np.uint32),
+          "bs_style": "lbs", "bs_type": "lrotmin",
+          "J": np.zeros((len(parents), 3))}
+    with open(path, "wb") as f:
+        pickle.dump(dd, f, protocol=2)
+
+
+def write_gmm_pickle(path: str, seed: int = 3, k: int = 8) -> None:
+    """A SMPLify ``gmm_08.pkl``-layout prior: means, covars, weights."""
+    import pickle
+    rng = np.random.RandomState(seed)
+    means = 0.1 * rng.randn(k, priors_lib.BODY_POSE_DIM)
+    covs = np.stack([np.eye(priors_lib.BODY_POSE_DIM) * (1.0 + 0.1 * i)
+                     for i in range(k)])
+    with open(path, "wb") as f:
+        pickle.dump({"means": means, "covars": covs,
+                     "weights": np.full(k, 1 / k)}, f, protocol=2)
+
+
+def fabricate_reference(ref_dir: str, model, cpm_params: dict) -> None:
+    """A reference-like directory, nested as a checkout would be: the CPM
+    weights as ``tf_converter.save_params_npz``'s flat npz, the SMPL model
+    in the real pickle schema and a SMPLify GMM pickle."""
+    os.makedirs(f"{ref_dir}/models", exist_ok=True)
+    tf_converter.save_params_npz(f"{ref_dir}/models/cpm_weights.npz",
+                                 cpm_params)
+    write_smpl_pickle(f"{ref_dir}/models/basicModel_neutral.pkl", model)
+    write_gmm_pickle(f"{ref_dir}/models/gmm_08.pkl")
+
+
+def write_tf1_checkpoint(path: str, params: dict, style: str) -> None:
+    """``params`` ({layer: {"w" HWIO, "b"}}) as a TF1 checkpoint written by
+    ``tf.compat.v1.train.Saver``, variables named in ``style``."""
+    import tensorflow as tf
+    tf1 = tf.compat.v1
+    w_name, b_name = TF_STYLES[style]
+    graph = tf1.Graph()
+    with graph.as_default():
+        for layer, wb in params.items():
+            tf1.Variable(wb["w"], name=w_name.format(layer))
+            tf1.Variable(wb["b"], name=b_name.format(layer))
+        saver = tf1.train.Saver()
+        with tf1.Session(graph=graph) as sess:
+            sess.run(tf1.global_variables_initializer())
+            saver.save(sess, path)
+
+
+def main_cpm_params() -> dict:
+    """The full-width CPM's random weights from seed 0, as numpy HWIO."""
+    return cpm_lib.cpm_params_to_numpy(
+        cpm_lib.init_cpm_params(0, MAIN_CPM, device="cpu"))
+
+
+def stage_parity_ok(report: dict) -> bool:
+    return all(report[k] <= bound
+               for k, bound in STAGE_PARITY_BOUNDS.items())
+
+
+def phase_in_process(call: str) -> subprocess.Popen:
+    """Start ``chip_smoke.<call>`` in a Python process of its own, from
+    this file's directory, its standard output to a temporary file."""
+    out = tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", f"import chip_smoke; chip_smoke.{call}"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), stdout=out,
+        text=True)
+    proc.out = out
+    return proc
+
+
+def stop_process(proc: subprocess.Popen) -> None:
+    """Kill ``proc`` if it is still running."""
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def finish_process(proc: subprocess.Popen, phase: str,
+                   timeout: float) -> dict:
+    """Wait for a :func:`phase_in_process` process, echo what it printed
+    and return its ``phase`` line; fails unless it exits 0 with that
+    line. The process is killed if it is still running."""
+    try:
+        proc.wait(timeout=timeout)
+    finally:
+        stop_process(proc)
+    proc.out.seek(0)
+    lines = {}
+    for line in proc.out.read().splitlines():
+        print(line, flush=True)
+        if line.startswith("{"):
+            obj = json.loads(line)
+            lines[obj.get("phase")] = obj
+    proc.out.close()
+    check(proc.returncode == 0 and phase in lines,
+          f"{phase} process exited {proc.returncode}")
+    return lines[phase]
+
+
+def phase_day_one_main_path() -> dict:
+    """The day-one CLI (``tools/reference_day_one.main``) on a reference
+    directory fabricated in a temporary directory: the full-width CPM's
+    weights (seed 0) as an npz, the full-size synthetic SMPL in the real
+    pickle schema, a SMPLify GMM pickle. DAY_ONE_ARGS: certification on
+    2 probe frames (the port's L-BFGS fit on the card, the float64 oracle
+    on the host), the smoke eval on 2 batches of DAY_ONE_EVAL_BATCH
+    (run_day_one's default; B1 once per batch).
+    The CLI's exit code must be 0; the verdict must be certified, within
+    1 mm and the stage-parity bounds."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_day_one_") as tmp:
+        t0 = time.perf_counter()
+        fabricate_reference(f"{tmp}/reference",
+                            smpl_data_lib.synthetic_smpl(
+                                seed=0, num_verts=DAY_ONE_VERTS,
+                                device="cpu"),
+                            main_cpm_params())
+        fabricate_s = time.perf_counter() - t0
+        lbfgs_lib.reset_counts()
+        code = None
+
+        def run():
+            nonlocal code
+            try:
+                reference_day_one.main(
+                    ["--reference", f"{tmp}/reference", "--out",
+                     f"{tmp}/out", "--device", DEVICE] + DAY_ONE_ARGS)
+            except SystemExit as e:
+                code = e.code
+
+        _, counts, sec = _counted(run)
+        with open(f"{tmp}/out/day_one_verdict.json") as f:
+            verdict = json.load(f)
+    n_eval = max(1, reference_day_one.parse_args(
+        ["--reference", ""] + DAY_ONE_ARGS).eval_frames // DAY_ONE_EVAL_BATCH)
+    cert = verdict.get("certification", {})
+    secs = {**verdict["seconds"], **{f"certify_{k}": v for k, v in
+                                     cert.get("seconds", {}).items()}}
+    out = {"exit_code": code, "ok": verdict["ok"],
+           "missing": verdict["missing"],
+           "stage_parity": cert.get("stage_parity"),
+           "fit_gap_mm_mean": cert.get("fit_gap", {}).get(
+               "mpjpe_gap_mm_mean"),
+           "fit_gap_mm_max": cert.get("fit_gap", {}).get(
+               "mpjpe_gap_mm_max"),
+           "certified": cert.get("certified"),
+           "independent_fit_gap_mm": cert.get("independent_fit_gap_mm"),
+           "gt_mpjpe_mm_ours": cert.get("gt_mpjpe_mm_ours"),
+           "gt_mpjpe_mm_oracle": cert.get("gt_mpjpe_mm_oracle"),
+           "smoke_eval": {k: verdict.get("smoke_eval", {}).get(k) for k in
+                          ("num_frames", "mpjpe_p1", "pa_mpjpe")},
+           "fabricate_s": fabricate_s, "seconds": sec, "sections_s": secs,
+           "oracle_evaluations": cert.get("oracle_evaluations"),
+           "lbfgs": dict(lbfgs_lib.COUNTS), "launches": counts,
+           "b1_per_smoke_eval_batch": counts["soft_argmax"] / n_eval}
+    emit({"phase": "day_one_main_path", **out})
+    check(code == 0, f"day-one CLI exited {code}")
+    check(verdict["ok"] and cert["certified"]
+          and cert["fit_gap"]["mpjpe_gap_mm_mean"] <= 1.0,
+          f"day-one verdict {out}")
+    check(stage_parity_ok(cert["stage_parity"]),
+          f"stage parity {cert['stage_parity']}")
+    want = {**B2_NONE, "soft_argmax": n_eval}
+    check(counts == want, f"day-one launched {counts}, expected {want}")
+    return counts
+
+
+def phase_parity_sweep_main_path() -> dict:
+    """The parity-sweep CLI (``tools/parity_sweep.main``) with
+    PARITY_SWEEP_ARGS on the full-size synthetic SMPL and GMM-8: the
+    oracle fits 2 probe frames with gmof_sigma 40 on the host, then one
+    greedy pass over the default axes, each candidate a fit on the card
+    (no CPM: B1 never runs). The best gap must be no worse than the
+    first."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sweep_") as tmp:
+        report, counts, sec = _counted(lambda: parity_sweep.main(
+            PARITY_SWEEP_ARGS + ["--out", f"{tmp}/parity.json", "--device",
+                                 DEVICE]))
+    s = report["sweep"]
+    fits = [h["seconds"] for h in s["history"]]
+    emit({"phase": "parity_sweep_main_path",
+          "best_gap_mm": s["best_gap_mm"],
+          "trajectory_mm": s["trajectory_mm"], "evals": s["evals"],
+          "best_setting": s["best_setting"],
+          "seconds_per_eval": statistics.mean(fits),
+          "seconds_per_eval_max": max(fits), "seconds": sec,
+          "launches": counts})
+    check(s["best_gap_mm"] <= s["trajectory_mm"][0] + 1e-9
+          and np.isfinite(s["best_gap_mm"]),
+          f"sweep best {s['best_gap_mm']} vs first {s['trajectory_mm'][0]}")
+    check(counts == {**B2_NONE, "soft_argmax": 0},
+          f"parity sweep launched {counts}")
+    return counts
+
+
+def phase_tf_converter_check() -> dict:
+    """Where tensorflow imports: the full-width CPM's weights (seed 0)
+    written as a TF1 checkpoint in each naming style TF_STYLES, converted
+    (``utils/tf_converter.convert_tf_checkpoint``) bit for bit back to
+    the source, and ``estimate_2d`` on the converted weights equal to the
+    source weights' (0 px) on frames of two people. Where it does not,
+    one line says so."""
+    if importlib.util.find_spec("tensorflow") is None:
+        out = {"phase": "tf_converter_check",
+               "skipped": "tensorflow is not installed"}
+        emit(out)
+        return out
+    params = main_cpm_params()
+    names = [d[0] for d in cpm_lib._layer_defs(MAIN_CPM)]
+    model = smpl_data_lib.synthetic_smpl(seed=0, device=DEVICE)
+    size = MAIN_CPM.input_size
+    frames = two_people_frames(2, size, size, seed=12)
+
+    def joints2d(p):
+        est = PoseEstimator(cpm_lib.cpm_params_from_numpy(p, MAIN_CPM,
+                                                          DEVICE),
+                            model, None, MAIN_CPM, device=DEVICE)
+        return est.estimate_2d(frames).joints2d
+
+    want = joints2d(params)
+    out = {"phase": "tf_converter_check", "styles": {}}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tf_") as tmp:
+        for style in TF_STYLES:
+            t0 = time.perf_counter()
+            write_tf1_checkpoint(f"{tmp}/{style}.ckpt", params, style)
+            t1 = time.perf_counter()
+            got = tf_converter.convert_tf_checkpoint(f"{tmp}/{style}.ckpt",
+                                                     names)
+            t2 = time.perf_counter()
+            equal = set(got) == set(params) and all(
+                np.array_equal(got[k][kind], params[k][kind])
+                and got[k][kind].dtype == np.float32
+                for k in params for kind in ("w", "b"))
+            px = float((joints2d(got) - want).abs().max())
+            out["styles"][style] = {"bit_equal": equal, "max_px": px,
+                                    "write_s": t1 - t0, "convert_s": t2 - t1}
+    emit(out)
+    for style, r in out["styles"].items():
+        check(r["bit_equal"] and r["max_px"] == 0.0,
+              f"tf_converter {style}: {r}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
@@ -3836,6 +4150,20 @@ def main() -> int:
     shutil.rmtree(EXPORT_OUT, ignore_errors=True)
     emit({"phase": "hard_set_phases", "seconds": time.perf_counter() - t0})
     sc_total = _sum_counts(sc_launches.values())
+
+    # The day-one CLI runs in a process of its own beside the sweep (both
+    # are host-bound: eager L-BFGS fits with host reads, the oracle's
+    # scipy loop), as a user runs it: a fresh process.
+    t0 = time.perf_counter()
+    day_one = phase_in_process("phase_day_one_main_path()")
+    try:
+        phase_tf_converter_check()
+        ps_launches = phase_parity_sweep_main_path()
+        d1_launches = finish_process(day_one, "day_one_main_path",
+                                     DAY_ONE_TIMEOUT_S)["launches"]
+    finally:
+        stop_process(day_one)
+    emit({"phase": "parity_phases", "seconds": time.perf_counter() - t0})
     sc8 = sc_launches["hard_rc_int8_calibrated"]
     pe8 = tl_launches["profile_estimate_2d_int8"]
 
@@ -3889,6 +4217,8 @@ def main() -> int:
         "launches_serving_artifact_path": sa_launches["soft_argmax"],
         "launches_selfcheck_export_section": sc_launches["export_section"][
             "soft_argmax"],
+        "launches_day_one_path": d1_launches["soft_argmax"],
+        "launches_parity_sweep_path": ps_launches["soft_argmax"],
         "max_abs_err": err["max_abs_err"],
         "ms": sa_row["ms"], "plain_ms": sa_row["plain_ms"],
         "bound_ms": sa_row["bound_ms"], "bound_by": sa_row["bound_by"],

@@ -629,3 +629,149 @@ def test_export_phases_run_with_the_computed_launches(cpu_export,
         est8, chip_smoke._frames(4, 64, 64, seed=2), per_chunk)
     assert got["quantize_im2col"] == 2 * per_chunk["quantize_im2col"] > 0
 
+
+
+# -- the parity harness, the TF converter and their CLIs, on the CPU ---------
+
+def test_fabricated_reference_loads_back(tmp_path):
+    """fabricate_reference's three files are what discover_assets and the
+    loaders expect: the npz loads as the CPM it was made from, the pickle
+    in the real SMPL schema as the same model (also through the JAX
+    package's loader), the GMM pickle as a prior."""
+    import numpy as np
+    from tpu_pose.models import smpl_data as jax_smpl_data
+    from tpu_pose_torch.fitting import priors
+    from tpu_pose_torch.models import cpm as cpm_lib
+    from tpu_pose_torch.models import smpl_data
+    from tpu_pose_torch.parity import day_one
+    from tpu_pose_torch.utils import tf_converter
+    cfg, _ = _small_multi()
+    model = smpl_data.synthetic_smpl(seed=0, num_verts=300, device="cpu")
+    params = cpm_lib.cpm_params_to_numpy(cpm_lib.init_cpm_params(
+        0, cfg, device="cpu"))
+    ref = str(tmp_path / "ref")
+    chip_smoke.fabricate_reference(ref, model, params)
+    assets = day_one.discover_assets(ref)
+    assert assets["files_seen"] == 3 and assets["ckpt"] is None
+    got = tf_converter.load_params_npz(assets["cpm_npz"])
+    assert set(got) == set(params)
+    assert all(np.array_equal(got[k][kind], params[k][kind])
+               for k in params for kind in ("w", "b"))
+    want = model.to_numpy()
+    for loaded in (smpl_data.load_smpl_pickle(assets["smpl_pkl"],
+                                              device="cpu").to_numpy(),
+                   {k: np.asarray(v) for k, v in jax_smpl_data
+                    .load_smpl_pickle(assets["smpl_pkl"])._asdict()
+                    .items()}):
+        for k, v in want.items():
+            np.testing.assert_array_equal(loaded[k], v, err_msg=k)
+    gmm = priors.load_gmm_pickle(assets["gmm_pkl"], device="cpu")
+    assert tuple(gmm.precisions.shape) == (8, 69, 69)
+
+
+def _phase_lines(out: str) -> dict:
+    import json
+    lines = [json.loads(s) for s in out.splitlines() if s.startswith("{")]
+    return {d["phase"]: d for d in lines if "phase" in d}
+
+
+@pytest.fixture
+def cpu_parity(monkeypatch, counted):
+    """chip_smoke's parity phases on the CPU: the small CPM for the
+    fabricated weights and the day-one chain, the 400-vertex SMPL, one
+    certification frame and one smoke-eval batch, a two-axis sweep,
+    launches counted by the wrappers' calls."""
+    import functools
+    from tpu_pose_torch.parity import day_one, sweep
+    cfg, _ = _small_multi()
+    axes = sweep.default_axes()
+    monkeypatch.setattr(sweep, "default_axes", lambda: {
+        k: axes[k] for k in ("gmof_sigma", "w_pose_scale")})
+    monkeypatch.setattr(day_one, "run_day_one", functools.partial(
+        day_one.run_day_one, cpm_cfg=cfg))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(chip_smoke, "zero_counts",
+                        lambda: counted.update(dict.fromkeys(counted, 0)))
+    monkeypatch.setattr(chip_smoke, "read_counts", lambda: dict(counted))
+    for name, value in dict(
+            DEVICE="cpu", MAIN_CPM=cfg, DAY_ONE_VERTS=400,
+            DAY_ONE_ARGS=["--frames", "1", "--eval_frames", "4"],
+            PARITY_SWEEP_ARGS=["--sweep", "--frames", "1", "--passes", "1",
+                               "--oracle_sigma", "40", "--verts",
+                               "400"]).items():
+        monkeypatch.setattr(chip_smoke, name, value)
+    return counted
+
+
+def test_day_one_phase_runs_the_cli(cpu_parity, capsys):
+    """day_one_main_path on the CPU: the day-one CLI's main on the
+    fabricated reference exits 0, certified within 1 mm and the
+    stage-parity bounds, one B1 per smoke-eval batch; its line carries
+    the verdict, the sections' seconds and the L-BFGS counts."""
+    counts = chip_smoke.phase_day_one_main_path()
+    assert counts["soft_argmax"] == 1
+    line = _phase_lines(capsys.readouterr().out)["day_one_main_path"]
+    assert line["exit_code"] == 0 and line["ok"] and line["certified"]
+    assert line["missing"] == [] and line["fit_gap_mm_mean"] <= 1.0
+    assert line["b1_per_smoke_eval_batch"] == 1.0
+    assert chip_smoke.stage_parity_ok(line["stage_parity"])
+    assert {"discover", "load", "certify", "smoke_eval", "certify_our_fit",
+            "certify_oracle_polish",
+            "certify_oracle_fit"} <= set(line["sections_s"])
+    assert line["lbfgs"]["host_reads"] > 0
+
+
+def test_parity_sweep_phase_runs_the_cli(cpu_parity, capsys):
+    """parity_sweep_main_path on the CPU: the sweep CLI's best gap no
+    worse than its first, no kernel launched (no CPM runs)."""
+    counts = chip_smoke.phase_parity_sweep_main_path()
+    assert counts["soft_argmax"] == 0
+    line = _phase_lines(capsys.readouterr().out)["parity_sweep_main_path"]
+    assert line["best_gap_mm"] <= line["trajectory_mm"][0] + 1e-9
+    assert line["evals"] >= 3 and line["seconds_per_eval"] > 0
+
+
+def test_tf_converter_check_states_its_skip(monkeypatch, capsys):
+    """Where tensorflow does not import, tf_converter_check prints its one
+    stated line and nothing else (the phase itself runs in
+    tests/test_torch_tf_parity.py, with the TensorFlow tests)."""
+    import importlib.util
+    real = importlib.util.find_spec
+    monkeypatch.setattr(importlib.util, "find_spec", lambda name, *a: (
+        None if name == "tensorflow" else real(name, *a)))
+    import json
+    want = {"phase": "tf_converter_check",
+            "skipped": "tensorflow is not installed"}
+    assert chip_smoke.phase_tf_converter_check() == want
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1
+    line = json.loads(lines[0])
+    assert line.pop("t_s") >= 0 and line == want
+
+
+def test_stage_parity_bounds_are_test_parity_s():
+    """STAGE_PARITY_BOUNDS holds tests/test_parity.py's bounds; a report
+    passes at them and fails above any one."""
+    report = dict(chip_smoke.STAGE_PARITY_BOUNDS)
+    assert chip_smoke.stage_parity_ok(report)
+    for k in report:
+        assert not chip_smoke.stage_parity_ok(
+            dict(report, **{k: report[k] + 1e-3}))
+
+
+@pytest.mark.parametrize("ok", [True, False])
+def test_phase_in_process_returns_its_line(ok, capsys):
+    """phase_in_process runs a call of the script in a process of its own;
+    finish_process echoes its output and returns its phase line, and
+    fails when the process fails."""
+    call = ("emit({'phase': 'probe', 'v': 1})" if ok
+            else "check(False, 'probe failed')")
+    proc = chip_smoke.phase_in_process(call)
+    if ok:
+        line = chip_smoke.finish_process(proc, "probe", 300)
+        assert line["v"] == 1 and line["t_s"] >= 0
+        assert '"phase": "probe"' in capsys.readouterr().out
+    else:
+        with pytest.raises(RuntimeError, match="probe process exited 1"):
+            chip_smoke.finish_process(proc, "probe", 300)
+    assert proc.poll() is not None

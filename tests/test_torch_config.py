@@ -49,13 +49,15 @@ def test_stage_schedules_match_jax():
 
 
 def test_port_imports_without_jax():
-    """Every module of the port, and chip_smoke.py, imports with jax and
-    the JAX package made unimportable."""
+    """Every module of the port, and chip_smoke.py, imports with jax, the
+    JAX package and tensorflow made unimportable (the TF1 converter
+    imports tensorflow inside the function)."""
     mods = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts)
         for p in (REPO / "tpu_pose_torch").rglob("*.py"))
     code = ("import sys\n"
-            "for m in ('jax', 'jaxlib', 'optax', 'tpu_pose'):\n"
+            "for m in ('jax', 'jaxlib', 'optax', 'tpu_pose',\n"
+            "          'tensorflow'):\n"
             "    sys.modules[m] = None\n"
             "import importlib\n"
             f"for m in {mods + ['chip_smoke']!r}:\n"

@@ -12,10 +12,11 @@ import pytest
 import torch
 
 from chip_smoke import two_people_frames
+from tpu_pose import native as jax_native
 from tpu_pose import serving as jax_serving
 from tpu_pose.api import PoseEstimator as JaxEstimator
 from tpu_pose.utils import config as jc
-from tpu_pose_torch import serving
+from tpu_pose_torch import native, serving
 from tpu_pose_torch.api import EstimateAndFitResult, PoseEstimator
 from tpu_pose_torch.models import joints as joints_lib
 from tpu_pose_torch.ops import preprocess as pre
@@ -56,7 +57,14 @@ def _carry(jax_est, **kw):
 
 @pytest.fixture(scope="module")
 def pair():
-    """(JAX estimator, port estimator over the same weights)."""
+    """(JAX estimator, port estimator over the same weights). Both
+    packages' native letterboxes are built here, before any server
+    starts: built at first use, g++ would run inside ``submit`` of the
+    first frame that needs a resample, after an earlier request has
+    opened the dispatcher's ``max_wait_ms`` window, and split the batch
+    that the batch-count assertions expect."""
+    jax_native.available()
+    native.available()
     jest = JaxEstimator.create_synthetic(0, *_cfgs(jc))
     return jest, _carry(jest)
 

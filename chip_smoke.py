@@ -129,7 +129,19 @@ port's dependencies (torch, numpy). It
    SMPL (``day_one_main_path``: the port's L-BFGS certification on the
    card against the float64 host oracle within 1 mm, then the smoke
    eval, B1 once per batch);
-16. prints a ``{"kernels": [...]}`` line and, last,
+16. runs the data-parallel layer (``tpu_pose_torch/parallel/mesh.py``)
+   in a process of its own beside the sweep, in a world of this one card
+   over NCCL (the day-one CLI and the streaming exports also run in
+   processes of their own, from the start of the hard-set phases):
+   ``sharded_fused_fn`` against the live call (``sharded_main_path``),
+   ``evaluate_h36m_style`` and ``evaluate_pckh`` with the mesh against
+   them without it (``sharded_eval``), ``make_train_step(mesh=)``
+   against the single-device step at batch 32 (``dp_train_step``), the
+   sharded 2D artifact against the live sharded call (``sharded_export``),
+   then ``torchrun --standalone --nproc_per_node 1`` of the train CLI and
+   ``tools/multiprocess_smoke`` with one rank (``parallel_cli``), B1
+   counted on every sharded path;
+17. prints a ``{"kernels": [...]}`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Every phase prints one JSON object per line. Any failed check raises, so
@@ -3320,6 +3332,7 @@ def phase_hard_small_reference() -> None:
 # -- deployment artifacts (ROADMAP A.17) --------------------------------------
 
 EXPORT_OUT = "build/chip_smoke_export"    # gitignored; removed at the end
+EXPORT_STREAMS_OUT = "build/chip_smoke_export_streams"   # its own process
 EXPORT_STREAM_CHUNK, EXPORT_STREAM_T = 16, 24   # one full window + 8
 # Section 8's rule (the JAX tool's): the artifact against the live call.
 ARTIFACT_J2D_PX, ARTIFACT_THETA, ARTIFACT_MPJPE_MM = 0.5, 0.05, 1.0
@@ -3574,15 +3587,19 @@ def _session_outputs(session, frames: np.ndarray, to_numpy) -> list:
     return outs
 
 
-def phase_export_streams(est: PoseEstimator) -> dict:
-    """Both streaming artifacts of ``est`` (an :func:`export_estimator_of`)
-    at chunk 16 over 24 frames (one full window and a padded one), pushed
-    7 frames at a time:
+def phase_export_streams(est: PoseEstimator = None) -> dict:
+    """Both streaming artifacts of ``est`` (an :func:`export_estimator_of`;
+    by default of the main estimator, when the phase runs in a process of
+    its own) at chunk EXPORT_STREAM_CHUNK over EXPORT_STREAM_T frames (one
+    full window and a padded one), pushed STREAM_PUSH frames at a time:
     ``ArtifactVideoSession`` of ``export_video_stream`` against
     ``VideoSession``, and of ``export_video_multi_stream`` against
     ``MultiPersonVideoSession`` on two-person frames. Same windows and
     carries: the same perms and frame masks, joints3d within 1 mm; B1
     once a window (the multi pipeline: ``video_multi_b1_launches``)."""
+    if est is None:
+        est = export_estimator_of(PoseEstimator.create_synthetic(
+            seed=0, cpm_cfg=MAIN_CPM, device=DEVICE))
     size = est.cpm_cfg.input_size
     chunk, t = EXPORT_STREAM_CHUNK, EXPORT_STREAM_T
     windows = -(-t // chunk)
@@ -3591,7 +3608,7 @@ def phase_export_streams(est: PoseEstimator) -> dict:
             ("video_stream", _frames(t, size, size, seed=61)),
             ("video_multi_stream", two_people_frames(t, size, size,
                                                      seed=62))):
-        path = f"{EXPORT_OUT}/{kind}"
+        path = f"{EXPORT_STREAMS_OUT}/{kind}"
         if kind == "video_stream":
             export = lambda p: export_lib.export_video_stream(  # noqa: E731
                 est, p, chunk=chunk)
@@ -3637,8 +3654,9 @@ def phase_export_streams(est: PoseEstimator) -> dict:
               f"{kind}: artifact launched {art_l}, live {live_l}, "
               f"expected {want}")
         launches[kind] = art_l
+    shutil.rmtree(EXPORT_STREAMS_OUT, ignore_errors=True)
     emit({"phase": "export_streams", "frames": t, "chunk": chunk,
-          "push": STREAM_PUSH, **res})
+          "push": STREAM_PUSH, **res, "launches": launches})
     return launches
 
 
@@ -3848,6 +3866,17 @@ def stop_process(proc: subprocess.Popen) -> None:
         proc.wait()
 
 
+def wait_for_file(path: str, timeout: float,
+                  proc: subprocess.Popen | None = None) -> None:
+    """Wait until ``path`` exists or ``proc``, when given, has exited (its
+    phase line then says why, when it is finished)."""
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(path) and (proc is None
+                                        or proc.poll() is None):
+        check(time.monotonic() < deadline, f"{path} did not appear")
+        time.sleep(0.2)
+
+
 def finish_process(proc: subprocess.Popen, phase: str,
                    timeout: float) -> dict:
     """Wait for a :func:`phase_in_process` process, echo what it printed
@@ -4013,6 +4042,308 @@ def phase_tf_converter_check() -> dict:
     return out
 
 
+# -- data parallelism over torch.distributed (ROADMAP A.21) ------------------
+
+PARALLEL_OUT = "build/chip_smoke_parallel"   # gitignored; removed at the end
+PARALLEL_EVAL_BATCHES = 2
+DP_BATCH = 32                 # tools/train_cpm.py's default --batch
+DP_STEPS = 3
+DP_PARAM_ATOL = 5e-4          # tests/test_parallel.py's DP-step bound
+PARALLEL_CLI_ARGS = ["--synthetic", "--steps", "3"]
+PARALLEL_TIMEOUT_S = 600.0
+ARTIFACT_JOINTS_ATOL = 1e-2   # tests/test_export.py's sharded artifact
+
+
+def sharded_b1_launches(batch: int, world: int, chunk: int) -> int:
+    """B1 launches on each rank per sharded call (``sharded_fused_fn``,
+    ``sharded_2d_fn``, a sharded artifact) on the float CPM: one per
+    ``chunk``-frame micro-chunk of the rank's batch / world rows, one
+    without micro-chunks."""
+    rows = batch // world
+    return -(-rows // chunk) if chunk else 1
+
+
+def _bytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+class Deterministic:
+    """``torch.use_deterministic_algorithms(True)`` for the duration, with
+    the ``CUBLAS_WORKSPACE_CONFIG`` that the mode requires of an op on
+    cuBLAS. The variable is set only here: set when the process starts, it
+    made every eager call of the process slower, the timed ones too. The
+    eager fit is not bit-reproducible on the card by default (ROADMAP §C);
+    under this mode two calls are, so a sharded path at world 1 must equal
+    the live one exactly."""
+
+    def __enter__(self):
+        self.prev = torch.are_deterministic_algorithms_enabled()
+        self.prev_env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+        torch.use_deterministic_algorithms(True)
+
+    def __exit__(self, *exc):
+        torch.use_deterministic_algorithms(self.prev)
+        if self.prev_env is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = self.prev_env
+
+
+def _max_gap(a, b) -> dict:
+    return {k: float((getattr(a, k).float() - getattr(b, k).float()).abs()
+                     .max()) for k in a._fields}
+
+
+def phase_sharded_main_path(est: PoseEstimator, mesh,
+                            images: np.ndarray) -> dict:
+    """``parallel/eval.sharded_fused_fn`` over the mesh against the live
+    ``estimate_and_fit`` on the same frames: seconds per call of each
+    (default mode, two calls each in turns after a warm-up of each), B1
+    launches per sharded call (as
+    ``sharded_b1_launches``), the ``all_gather`` of the outputs timed alone
+    with its bytes, and Δθ against the live call and between two live
+    calls (the card's eager non-determinism). Under ``Deterministic`` the
+    sharded call equals the live one in every output field when the world
+    is one rank."""
+    from tpu_pose_torch.parallel import mesh as mesh_lib
+    run = eval_lib.sharded_fused_fn(est, mesh)
+    first = est.estimate_and_fit(images)   # warm-ups: cuDNN, the NCCL
+    run(images)                            # communicator
+    live_s, sharded_s = [], []
+    for _ in range(2):
+        live, live_counts, s = _counted(lambda: est.estimate_and_fit(images))
+        live_s.append(s)
+        res, counts, s = _counted(lambda: run(images))
+        sharded_s.append(s)
+    check_result(res, len(images))
+    b1 = sharded_b1_launches(len(images), mesh.size(), est.cpm_microbatch)
+    check(counts == {**B2_NONE, "soft_argmax": b1},
+          f"sharded_main_path: launched {counts}, expected {b1} B1")
+    with Deterministic():
+        exact = _max_gap(run(images), est.estimate_and_fit(images))
+    if mesh.size() == 1:
+        check(max(exact.values()) == 0.0,
+              f"sharded_main_path: deterministic gaps {exact}")
+    gather_ms = eager_ms(lambda: mesh_lib.gather_batch(live, mesh), reps=20)
+    emit({"phase": "sharded_main_path", "world_size": mesh.size(),
+          "batch": len(images), "s_per_call": sharded_s,
+          "live_s_per_call": live_s, "b1_per_call": counts["soft_argmax"],
+          "live_launches": live_counts, "all_gather_ms": gather_ms,
+          "all_gather_bytes": _bytes(live),
+          "max_d_theta": _max_gap(res, live)["theta"],
+          "live_vs_live_max_d_theta": _max_gap(first, live)["theta"],
+          "deterministic_max_gap": exact})
+    return counts
+
+
+def phase_sharded_eval(est: PoseEstimator, mesh) -> dict:
+    """``evaluate_h36m_style`` and ``evaluate_pckh`` with the mesh against
+    the same evaluators without one, on PARALLEL_EVAL_BATCHES synthetic
+    batches of MAIN_BATCH, under ``Deterministic``: B1 per batch as
+    ``sharded_b1_launches``; at world 1 the metrics equal."""
+    model = smpl_data_lib.synthetic_smpl(seed=0, device="cpu")
+    batches = list(synthetic.eval_batches(model, MAIN_BATCH,
+                                          PARALLEL_EVAL_BATCHES, MAIN_CPM))
+    b1 = sharded_b1_launches(MAIN_BATCH, mesh.size(), est.cpm_microbatch)
+    out, launches = {}, {}
+    for name, evaluate in (("h36m", eval_lib.evaluate_h36m_style),
+                           ("pckh", eval_lib.evaluate_pckh)):
+        with Deterministic():
+            single, _, single_s = _counted(
+                lambda: evaluate(est, iter(batches)))
+            res, counts, seconds = _counted(
+                lambda: evaluate(est, iter(batches), mesh=mesh))
+        want = {**B2_NONE, "soft_argmax": b1 * PARALLEL_EVAL_BATCHES}
+        check(counts == want, f"sharded_eval {name}: launched {counts}, "
+              f"expected {want}")
+        check(mesh.size() > 1 or res == single,
+              f"sharded_eval {name}: {res} vs {single}")
+        out[name] = {"result": {k: v for k, v in res.items()
+                                if not isinstance(v, dict)},
+                     "equal": res == single, "seconds": seconds,
+                     "single_seconds": single_s,
+                     "b1_per_batch": counts["soft_argmax"]
+                     / PARALLEL_EVAL_BATCHES}
+        launches[name] = counts
+    emit({"phase": "sharded_eval", "world_size": mesh.size(),
+          "batch": MAIN_BATCH, "batches": PARALLEL_EVAL_BATCHES,
+          "deterministic": True, **out})
+    return launches
+
+
+def phase_dp_train_step(mesh) -> dict:
+    """``make_train_step(mesh=)`` against the single-device step at full
+    width on one synthetic batch of DP_BATCH, DP_STEPS steps each from the
+    same initial state (the CLI's schedule): the first step's loss within
+    1e-5, the largest parameter difference after the steps within
+    DP_PARAM_ATOL, seconds per step with and without the mesh, no kernel
+    of the port launched; and the gradients' ``all_reduce``
+    (``mesh.pmean``) timed alone with its bytes."""
+    from tpu_pose_torch.parallel import mesh as mesh_lib
+    model = smpl_data_lib.synthetic_smpl(seed=0, device="cpu")
+    batch = next(synthetic.cpm_train_batches(model, DP_BATCH, 1, MAIN_CPM,
+                                             seed=0))
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(DEVICE)
+             for k, v in batch.items()}
+    runs = {}
+    for label, m in (("single", None), ("mesh", mesh)):
+        cpm, opt_state, opt = cpm_train.init_train_state(
+            0, MAIN_CPM, lr=TRAIN_LR, total_steps=TRAIN_STEPS, device=DEVICE)
+        if m is not None:
+            mesh_lib.replicate(cpm, m)
+        step = cpm_train.make_train_step(MAIN_CPM, opt, mesh=m)
+        losses, seconds = [], []
+        zero_counts()
+        for _ in range(DP_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cpm, opt_state, loss = step(cpm, opt_state, batch)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+        check(read_counts() == dict.fromkeys(COUNTED, 0),
+              f"dp_train_step {label}: launched {read_counts()}")
+        check(all(np.isfinite(losses)), f"dp_train_step losses {losses}")
+        runs[label] = (cpm, losses, seconds)
+    (cpm_1, loss_1, s_1), (cpm_n, loss_n, s_n) = runs["single"], runs["mesh"]
+    check(abs(loss_n[0] - loss_1[0]) <= LOSS_RTOL * abs(loss_1[0]),
+          f"dp_train_step: first loss {loss_n[0]} vs {loss_1[0]}")
+    with torch.no_grad():
+        d_param = max(float((a - b).abs().max()) for a, b in
+                      zip(cpm_1.parameters(), cpm_n.parameters()))
+    check(d_param <= DP_PARAM_ATOL, f"dp_train_step: params {d_param} apart")
+    grads = [torch.randn_like(p) for p in cpm_n.parameters()]
+    allreduce_ms = eager_ms(lambda: mesh_lib.pmean(grads, mesh), reps=20)
+    emit({"phase": "dp_train_step", "world_size": mesh.size(),
+          "batch": DP_BATCH, "steps": DP_STEPS, "loss_mesh": loss_n,
+          "loss_single": loss_1, "max_param_diff": d_param,
+          "s_per_step_mesh": statistics.median(s_n[1:]),
+          "s_per_step_single": statistics.median(s_1[1:]),
+          "grad_all_reduce_ms": allreduce_ms,
+          "grad_all_reduce_bytes": _bytes(grads) + 4})
+    return dict.fromkeys(COUNTED, 0)
+
+
+def phase_sharded_export(est: PoseEstimator, mesh,
+                         images: np.ndarray) -> dict:
+    """``export_estimator(fn="estimate_2d", batch=MAIN_BATCH,
+    n_devices=world)``, loaded and run against the live
+    ``sharded_2d_fn`` on the same frames: export and load seconds, the
+    recorded sharding, B1 per artifact call as ``sharded_b1_launches``,
+    joints within tests/test_export.py's sharded bound."""
+    from tpu_pose_torch.parallel import eval as peval
+    path = os.path.join(PARALLEL_OUT, "estimate_2d_dp")
+    t0 = time.perf_counter()
+    meta = export_lib.export_estimator(est, path, fn="estimate_2d",
+                                       batch=len(images),
+                                       n_devices=mesh.size())
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prog = export_lib.load(path)
+    load_s = time.perf_counter() - t0
+    check(meta["sharding"] == {"n_devices": mesh.size(), "axis": "data"},
+          f"sharded_export: sharding {meta['sharding']}")
+    live = peval.sharded_2d_fn(est, mesh)(images)
+    prog(images)
+    out, counts, seconds = _counted(lambda: prog(images))
+    b1 = sharded_b1_launches(len(images), mesh.size(), 0)
+    check(counts == {**B2_NONE, "soft_argmax": b1},
+          f"sharded_export: launched {counts}, expected {b1} B1")
+    d_joints = float(np.abs(out["joints2d"]
+                            - live.joints2d.cpu().numpy()).max())
+    check(d_joints <= ARTIFACT_JOINTS_ATOL,
+          f"sharded_export: joints2d {d_joints} px from the live call")
+    emit({"phase": "sharded_export", "world_size": mesh.size(),
+          "batch": len(images), "export_s": export_s, "load_s": load_s,
+          "s_per_call": seconds, "b1_per_call": counts["soft_argmax"],
+          "max_d_joints2d_px": d_joints, "sharding": meta["sharding"]})
+    return counts
+
+
+def phase_parallel_cli() -> dict:
+    """The train CLI under the launcher, as a user runs it (``torchrun
+    --standalone --nproc_per_node 1 -m tpu_pose_torch.tools.train_cpm``
+    with PARALLEL_CLI_ARGS, through ``python -m torch.distributed.run``),
+    then ``tools/multiprocess_smoke`` with one rank on the card: both
+    exit 0, the CLI with a finite final loss, the smoke with its OK."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "1", "-m", "tpu_pose_torch.tools.train_cpm",
+         *PARALLEL_CLI_ARGS, "--device", DEVICE], cwd=root,
+        capture_output=True, text=True, timeout=PARALLEL_TIMEOUT_S)
+    cli_s = time.perf_counter() - t0
+    done = [ln for ln in cli.stdout.splitlines() if ln.startswith("done:")]
+    check(cli.returncode == 0 and len(done) == 1,
+          f"train_cpm under torchrun exited {cli.returncode}: "
+          f"{cli.stderr[-2000:]}")
+    final = float(done[0].rsplit(" ", 1)[1])
+    check(np.isfinite(final), f"train_cpm final loss {final}")
+    t0 = time.perf_counter()
+    smoke = subprocess.run(
+        [sys.executable, "-m", "tpu_pose_torch.tools.multiprocess_smoke",
+         "--nproc", "1", "--device", torch.device(DEVICE).type], cwd=root,
+        capture_output=True, text=True, timeout=PARALLEL_TIMEOUT_S)
+    smoke_s = time.perf_counter() - t0
+    check(smoke.returncode == 0
+          and "multiprocess_smoke: OK" in smoke.stdout,
+          f"multiprocess_smoke exited {smoke.returncode}: "
+          f"{smoke.stdout[-1000:]} {smoke.stderr[-1000:]}")
+    report = json.loads(smoke.stdout.strip().splitlines()[-2])
+    emit({"phase": "parallel_cli", "train_cli_s": cli_s,
+          "train_cli_final_loss": final, "train_cli_args": PARALLEL_CLI_ARGS,
+          "multiprocess_smoke_s": smoke_s,
+          "multiprocess_smoke": {k: report[k] for k in
+                                 ("reference_loss", "ok")},
+          "backend": report["ranks"][0]["backend"]})
+    return dict.fromkeys(COUNTED, 0)
+
+
+def phase_parallel_main_path(timed_flag: str | None = None,
+                             go_flag: str | None = None) -> dict:
+    """The data-parallel phases in this process's own world (a mesh over
+    every rank: one card over NCCL when the script runs alone): the
+    sharded main path and the DP train step, whose seconds are compared
+    with the live call's and the single step's; then ``timed_flag`` is
+    created (when given), so that the caller starts other work on the
+    card only after those times were taken, and the process waits for
+    ``go_flag`` (when given), so that the rest runs when the caller has
+    room for it: the sharded evaluators, the sharded artifact at full
+    width, the train CLI under the launcher and the multi-process smoke.
+    Runs in a process of its own
+    (``phase_in_process``), so the process group ends with it; prints a
+    ``parallel_phases`` line with each phase's launches."""
+    from tpu_pose_torch.parallel import mesh as mesh_lib
+    t0 = time.perf_counter()
+    mesh = mesh_lib.make_mesh(device=torch.device(DEVICE).type)
+    try:
+        est = PoseEstimator.create_synthetic(seed=0, cpm_cfg=MAIN_CPM,
+                                             device=DEVICE)
+        size = MAIN_CPM.input_size
+        images = _frames(MAIN_BATCH, size, size, seed=0)
+        launches = {
+            "sharded_main_path": phase_sharded_main_path(est, mesh, images),
+            "dp_train_step": phase_dp_train_step(mesh)}
+        if timed_flag:
+            open(timed_flag, "w").close()
+        if go_flag:
+            wait_for_file(go_flag, DAY_ONE_TIMEOUT_S)
+        launches["sharded_eval"] = phase_sharded_eval(est, mesh)
+        launches["sharded_export"] = phase_sharded_export(est, mesh, images)
+        launches["parallel_cli"] = phase_parallel_cli()
+        backend = torch.distributed.get_backend()
+    finally:
+        torch.distributed.destroy_process_group()
+        shutil.rmtree(PARALLEL_OUT, ignore_errors=True)
+    line = {"phase": "parallel_phases", "world_size": mesh.size(),
+            "backend": backend, "launches": launches,
+            "seconds": time.perf_counter() - t0}
+    emit(line)
+    return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
@@ -4049,7 +4380,6 @@ def main() -> int:
     xf_launches = phase_export_fit_smpl(est_x)
     xm_launches = phase_export_multi(
         est_x, two_people_frames(MAIN_BATCH, size, size, seed=64))
-    xs_launches = phase_export_streams(est_x)
     del est_x
     phase_breakdown(est, images)
     phase_profile(est, images)
@@ -4139,31 +4469,54 @@ def main() -> int:
     del est_qat8
     phase_train_eval_small_reference()
 
+    # From here three host-bound pieces run in processes of their own: the
+    # data-parallel phases (their process group, NCCL over the one card,
+    # ends with their process), and, beside the hard-set phases and the
+    # sweep, the day-one CLI (eager L-BFGS fits with host reads, the
+    # oracle's scipy loop) as a user runs it and the streaming exports
+    # (tracing, 300 MB saves and loads). The data-parallel phases that
+    # compare seconds per call run first, with nothing else on the card
+    # or the host; the rest of them beside the sweep.
     t0 = time.perf_counter()
-    phase_hard_data_check()
-    hard_npz, sc_launches = phase_selfcheck_main_path()
-    tb_launches = phase_track_bench_main_path(hard_npz)
-    hs_launches = phase_hard_sweep_main_path()
-    tl_launches = phase_tools_main_path()
-    phase_hard_small_reference()
-    shutil.rmtree(SC_OUT, ignore_errors=True)
-    shutil.rmtree(EXPORT_OUT, ignore_errors=True)
-    emit({"phase": "hard_set_phases", "seconds": time.perf_counter() - t0})
-    sc_total = _sum_counts(sc_launches.values())
-
-    # The day-one CLI runs in a process of its own beside the sweep (both
-    # are host-bound: eager L-BFGS fits with host reads, the oracle's
-    # scipy loop), as a user runs it: a fresh process.
-    t0 = time.perf_counter()
-    day_one = phase_in_process("phase_day_one_main_path()")
+    flag_dir = tempfile.mkdtemp(prefix="chip_smoke_")
+    timed_flag, go_flag = (os.path.join(flag_dir, n) for n in ("timed",
+                                                               "go"))
+    parallel = phase_in_process(
+        f"phase_parallel_main_path({timed_flag!r}, {go_flag!r})")
+    day_one = streams = None
     try:
+        wait_for_file(timed_flag, PARALLEL_TIMEOUT_S, parallel)
+        emit({"phase": "parallel_timed_phases",
+              "seconds": time.perf_counter() - t0})
+        day_one = phase_in_process("phase_day_one_main_path()")
+        streams = phase_in_process("phase_export_streams()")
+        phase_hard_data_check()
+        hard_npz, sc_launches = phase_selfcheck_main_path()
+        tb_launches = phase_track_bench_main_path(hard_npz)
+        hs_launches = phase_hard_sweep_main_path()
+        tl_launches = phase_tools_main_path()
+        phase_hard_small_reference()
+        shutil.rmtree(SC_OUT, ignore_errors=True)
+        shutil.rmtree(EXPORT_OUT, ignore_errors=True)
+        emit({"phase": "hard_set_phases",
+              "seconds": time.perf_counter() - t0})
         phase_tf_converter_check()
+        open(go_flag, "w").close()
         ps_launches = phase_parity_sweep_main_path()
+        par = finish_process(parallel, "parallel_phases",
+                             PARALLEL_TIMEOUT_S)["launches"]
+        xs_launches = finish_process(streams, "export_streams",
+                                     PARALLEL_TIMEOUT_S)["launches"]
         d1_launches = finish_process(day_one, "day_one_main_path",
                                      DAY_ONE_TIMEOUT_S)["launches"]
     finally:
-        stop_process(day_one)
-    emit({"phase": "parity_phases", "seconds": time.perf_counter() - t0})
+        for proc in (parallel, day_one, streams):
+            if proc is not None:
+                stop_process(proc)
+        shutil.rmtree(flag_dir, ignore_errors=True)
+    emit({"phase": "hard_set_and_parity_phases",
+          "seconds": time.perf_counter() - t0})
+    sc_total = _sum_counts(sc_launches.values())
     sc8 = sc_launches["hard_rc_int8_calibrated"]
     pe8 = tl_launches["profile_estimate_2d_int8"]
 
@@ -4219,6 +4572,15 @@ def main() -> int:
             "soft_argmax"],
         "launches_day_one_path": d1_launches["soft_argmax"],
         "launches_parity_sweep_path": ps_launches["soft_argmax"],
+        "launches_sharded_main_path": par["sharded_main_path"][
+            "soft_argmax"],
+        "launches_sharded_eval_h36m_path": par["sharded_eval"]["h36m"][
+            "soft_argmax"],
+        "launches_sharded_eval_pckh_path": par["sharded_eval"]["pckh"][
+            "soft_argmax"],
+        "launches_sharded_export_path": par["sharded_export"][
+            "soft_argmax"],
+        "launches_dp_train_path": par["dp_train_step"]["soft_argmax"],
         "max_abs_err": err["max_abs_err"],
         "ms": sa_row["ms"], "plain_ms": sa_row["plain_ms"],
         "bound_ms": sa_row["bound_ms"], "bound_by": sa_row["bound_by"],
@@ -4242,6 +4604,10 @@ def main() -> int:
         "launches_export_int8_path": x8_launches["quantize_act"],
         "launches_selfcheck_path_other_sections": sc_total["quantize_act"]
         - sc8["quantize_act"],
+        "launches_sharded_paths": _sum_counts(
+            [par["sharded_main_path"], par["sharded_export"],
+             *par["sharded_eval"].values()])["quantize_act"],
+        "launches_dp_train_path": par["dp_train_step"]["quantize_act"],
         "max_abs_err": q_err["max_abs_err"],
         "ms": q_row["ms"], "plain_ms": q_row["plain_ms"],
         "bound_ms": q_row["bound_ms"], "bound_by": q_row["bound_by"],
@@ -4262,6 +4628,10 @@ def main() -> int:
         "launches_selfcheck_int8_rung": sc8["quantize_im2col"],
         "launches_profile_entry_int8_path": pe8["quantize_im2col"],
         "launches_export_int8_path": x8_launches["quantize_im2col"],
+        "launches_sharded_paths": _sum_counts(
+            [par["sharded_main_path"], par["sharded_export"],
+             *par["sharded_eval"].values()])["quantize_im2col"],
+        "launches_dp_train_path": par["dp_train_step"]["quantize_im2col"],
         "max_abs_err": g_err["max_abs_err"],
         "ms": g_row["ms"], "plain_ms": g_row["plain_ms"],
         "bound_ms": g_row["bound_ms"], "bound_by": g_row["bound_by"],

@@ -18,7 +18,7 @@ from tpu_pose_torch.api import PoseEstimator
 from tpu_pose_torch.models import cpm as cpm_lib
 from tpu_pose_torch.utils import config as tc
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 def _cfgs(cfg_mod, compute_dtype):

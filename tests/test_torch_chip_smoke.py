@@ -524,9 +524,12 @@ def test_hard_set_phases_run_with_the_computed_launches(cpu_phases):
 
 
 def test_main_runs_every_phase():
-    """main() calls every phase_* function the script defines."""
+    """main() calls every phase_* function the script defines, itself or
+    through phase_parallel_main_path, which it runs in a process of its
+    own."""
     import inspect
-    body = inspect.getsource(chip_smoke.main)
+    body = inspect.getsource(chip_smoke.main) + inspect.getsource(
+        chip_smoke.phase_parallel_main_path)
     phases = [n for n, f in vars(chip_smoke).items()
               if n.startswith("phase_") and inspect.isfunction(f)]
     assert len(phases) > 40
@@ -775,3 +778,97 @@ def test_phase_in_process_returns_its_line(ok, capsys):
         with pytest.raises(RuntimeError, match="probe process exited 1"):
             chip_smoke.finish_process(proc, "probe", 300)
     assert proc.poll() is not None
+
+
+# -- data parallelism over torch.distributed (ROADMAP A.21) -------------------
+
+def test_sharded_b1_launches():
+    """B1 per rank per sharded call: one per micro-chunk of the rank's
+    rows, one without micro-chunks."""
+    assert chip_smoke.sharded_b1_launches(8, 1, 0) == 1
+    assert chip_smoke.sharded_b1_launches(8, 2, 0) == 1
+    assert chip_smoke.sharded_b1_launches(32, 1, 16) == 2
+    assert chip_smoke.sharded_b1_launches(32, 2, 16) == 1
+    assert chip_smoke.sharded_b1_launches(8, 1, 3) == 3
+
+
+def test_wait_for_file_returns_on_the_flag_or_the_exit(tmp_path):
+    """main() starts the other processes once the data-parallel process
+    has created its flag after the timed phases, or has exited; a flag
+    that never appears fails the run at the timeout, in main() or in the
+    process waiting for main()'s go-ahead."""
+    flag = str(tmp_path / "timed")
+    code = f"import time; open({flag!r}, 'w').close(); time.sleep(60)"
+    proc = subprocess.Popen([sys.executable, "-c", code])
+    try:
+        chip_smoke.wait_for_file(flag, 30, proc)
+        assert os.path.exists(flag) and proc.poll() is None
+    finally:
+        chip_smoke.stop_process(proc)
+    chip_smoke.wait_for_file(flag, 0.5)
+    proc = subprocess.Popen([sys.executable, "-c", "pass"])
+    chip_smoke.wait_for_file(str(tmp_path / "never"), 30, proc)
+    assert proc.returncode == 0
+    proc = subprocess.Popen([sys.executable, "-c", "import time; "
+                             "time.sleep(60)"])
+    try:
+        with pytest.raises(RuntimeError, match="did not appear"):
+            chip_smoke.wait_for_file(str(tmp_path / "never"), 0.5, proc)
+    finally:
+        chip_smoke.stop_process(proc)
+    with pytest.raises(RuntimeError, match="did not appear"):
+        chip_smoke.wait_for_file(str(tmp_path / "never"), 0.5)
+
+
+PARALLEL_KEYS = {
+    "sharded_main_path": {"s_per_call", "live_s_per_call", "b1_per_call",
+                          "all_gather_ms", "all_gather_bytes",
+                          "max_d_theta", "live_vs_live_max_d_theta",
+                          "deterministic_max_gap"},
+    "sharded_eval": {"h36m", "pckh", "batch", "batches", "deterministic"},
+    "dp_train_step": {"loss_mesh", "loss_single", "max_param_diff",
+                      "s_per_step_mesh", "s_per_step_single",
+                      "grad_all_reduce_ms", "grad_all_reduce_bytes"},
+    "sharded_export": {"export_s", "load_s", "s_per_call", "b1_per_call",
+                       "max_d_joints2d_px", "sharding"}}
+
+
+def test_parallel_phases_run_with_the_computed_launches(cpu_export,
+                                                        monkeypatch,
+                                                        tmp_path, capsys):
+    """sharded_main_path, sharded_eval, dp_train_step and sharded_export
+    on the CPU in a gloo world of one, at a small size: every check
+    inside passes (B1 once per sharded call, per evaluated batch and per
+    artifact call; the DP step's loss and parameters; no B2 anywhere),
+    and each prints its keys."""
+    from tpu_pose_torch.api import PoseEstimator
+    from tpu_pose_torch.parallel import mesh as mesh_lib
+    cfg, fit = cpu_export
+    for name, value in dict(MAIN_BATCH=2, DP_BATCH=2,
+                            PARALLEL_OUT=str(tmp_path / "p")).items():
+        monkeypatch.setattr(chip_smoke, name, value)
+    monkeypatch.setattr(chip_smoke, "eager_ms",
+                        lambda fn, reps=60: 1e3 * chip_smoke.host_s(fn))
+    est = PoseEstimator.create_synthetic(seed=0, cpm_cfg=cfg, fit_cfg=fit,
+                                         device="cpu")
+    images = chip_smoke._frames(2, 64, 64, seed=0)
+    b1 = {**chip_smoke.B2_NONE, "soft_argmax": 1}
+    mesh = mesh_lib.make_mesh(device="cpu")
+    try:
+        assert chip_smoke.phase_sharded_main_path(est, mesh, images) == b1
+        ev = chip_smoke.phase_sharded_eval(est, mesh)
+        assert ev == {k: {**chip_smoke.B2_NONE, "soft_argmax": 2}
+                      for k in ("h36m", "pckh")}
+        assert set(chip_smoke.phase_dp_train_step(mesh).values()) == {0}
+        assert chip_smoke.phase_sharded_export(est, mesh, images) == b1
+    finally:
+        torch.distributed.destroy_process_group()
+    lines = _phase_lines(capsys.readouterr().out)
+    for phase, keys in PARALLEL_KEYS.items():
+        assert keys <= set(lines[phase]), phase
+        assert lines[phase]["world_size"] == 1
+    assert lines["dp_train_step"]["max_param_diff"] == 0.0
+    assert lines["sharded_main_path"]["max_d_theta"] == 0.0
+    assert set(lines["sharded_main_path"]["deterministic_max_gap"]
+               .values()) == {0.0}
+    assert lines["sharded_eval"]["h36m"]["equal"]

@@ -12,7 +12,7 @@ import torch
 from tpu_pose.utils import config as jc
 from tpu_pose_torch.utils import config as tc
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parents[1]
 

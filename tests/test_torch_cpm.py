@@ -17,7 +17,7 @@ from tpu_pose_torch.models import cpm as torch_cpm
 from tpu_pose_torch.utils import config as torch_config
 from tpu_pose_torch.utils import tf_converter as torch_conv
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 # tests/test_api.py's SMALL_CPM, in float32 so the comparison is of the
 # algorithm rather than of where bf16 rounds.

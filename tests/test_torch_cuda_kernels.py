@@ -20,7 +20,7 @@ from tpu_pose_torch.models import cpm as cpm_lib
 from tpu_pose_torch.ops import cuda_kernels, quantize, softargmax
 from tpu_pose_torch.utils.config import CPMConfig
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 # The reference's own Pallas-vs-XLA tolerances (tests/test_pallas.py):
 # float32 sums over 2116 cells taken in another order.

@@ -22,7 +22,7 @@ from tpu_pose_torch.data import datasets, pipeline, synthetic
 from tpu_pose_torch.models import joints, smpl_data
 from tpu_pose_torch.utils.config import CPMConfig
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 CFG_KW = dict(input_size=64, features=16, stage1_head_width=32,
               refine_width=16, num_stages=2)

@@ -39,7 +39,7 @@ from tpu_pose_torch.fitting import fit as fit_lib
 from tpu_pose_torch.ops import cuda_kernels
 from tpu_pose_torch.utils import config as tc
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = dict(rtol=0, atol=1e-5)
@@ -387,22 +387,42 @@ def test_serving_from_artifact(est, loaded):
 
 
 def test_export_sharded_multichip_raises(est, tmp_path):
-    """Multi-GPU data-parallel programs are not ported (ROADMAP A.21):
-    n_devices raises with that reason instead of exporting a
-    single-device program."""
-    with pytest.raises(ValueError, match="A.21"):
+    """A sharded artifact in one process: n_devices=1 records the sharding
+    and its loaded program equals the live estimate_2d; n_devices=8 needs a
+    world of 8 ranks and raises without writing, as do a symbolic batch
+    and a batch not divisible by n_devices (the two-rank artifact is held
+    against the live sharded call in tests/test_torch_parallel.py)."""
+    path = str(tmp_path / "dp1")
+    meta = pexport.export_estimator(est, path, fn="estimate_2d", batch=2,
+                                    n_devices=1)
+    assert meta["sharding"] == {"n_devices": 1, "axis": "data"}
+    assert pexport.inspect_artifact(path)["sharding"] == meta["sharding"]
+    frames = _frames(2, seed=13)
+    got = pexport.load(path)(frames)
+    live = _np(est.estimate_2d(frames))
+    for k in ("heatmaps", "joints2d", "conf"):
+        np.testing.assert_allclose(got[k], live[k], atol=1e-5, err_msg=k)
+    with pytest.raises(ValueError, match="need 8 ranks"):
         pexport.export_estimator(est, str(tmp_path / "dp8"),
                                  fn="estimate_2d", batch=8, n_devices=8)
     assert not os.path.exists(tmp_path / "dp8")
+    with pytest.raises(ValueError, match="static batch"):
+        pexport.export_estimator(est, str(tmp_path / "x1"),
+                                 fn="estimate_2d", n_devices=1)
+    with pytest.raises(ValueError, match="not divisible"):
+        pexport.export_estimator(est, str(tmp_path / "x2"),
+                                 fn="estimate_2d", batch=3, n_devices=2)
 
 
 def test_serving_from_sharded_artifact_raises(est, tmp_path):
-    """The sharded serving artifact of the JAX file cannot be built
-    either: the fused path with n_devices raises the same way."""
-    with pytest.raises(ValueError, match="not ported"):
+    """The JAX file serves an 8-device artifact from one controller; the
+    port's needs a world of 8 ranks, so in one process the fused path with
+    n_devices=8 raises before exporting."""
+    with pytest.raises(ValueError, match="need 8 ranks"):
         pexport.export_estimator(est, str(tmp_path / "dp_srv"),
                                  fn="estimate_and_fit", batch=8,
                                  n_devices=8)
+    assert not os.path.exists(tmp_path / "dp_srv")
 
 
 def test_video_multi_stream_artifact_matches_live(est, artifacts):

@@ -21,7 +21,7 @@ from tpu_pose_torch.fitting import priors as torch_priors
 from tpu_pose_torch.models import smpl_data as torch_data
 from tpu_pose_torch.utils import config as tc
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 def _small_fit(cfg_mod, **kw):

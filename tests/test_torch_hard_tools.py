@@ -33,7 +33,7 @@ from tpu_pose_torch.tools import (demo, hard_sweep, profile_entry,
 from tpu_pose_torch.utils import checkpoint, tf_converter
 from tpu_pose_torch.utils import config as tc
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 MM = 1e-3                 # BASELINE.json's budget, metres
 PX = 0.05

@@ -43,7 +43,7 @@ from tpu_pose_torch.models import smpl as smpl_lib
 from tpu_pose_torch.models import smpl_data as torch_data
 from tpu_pose_torch.utils import config as tc
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 PENALTY_TOL = dict(rtol=1e-5, atol=1e-5)
 E_TOL = dict(rtol=1e-5, atol=1e-6)

@@ -2,7 +2,10 @@
 TensorFlow: the counterparts of tests/test_parity.py's cases, with the
 same thresholds, on the port's float64 torch oracle and the port's fit
 on the CPU; the oracle's SMPL against the independent numpy oracle; and
-asset discovery of a converted npz."""
+asset discovery of a converted npz. The port's certification runs once
+per module: test_certify_under_1mm reads it, and so does the comparison
+with JAX's certification, which needs TensorFlow (the JAX package's
+oracle) and skips without it."""
 
 import json
 import os
@@ -19,7 +22,7 @@ from tpu_pose_torch.parity import day_one, harness, oracle, sweep
 from tpu_pose_torch.utils import tf_converter
 from tpu_pose_torch.utils.config import CPMConfig, FitConfig
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 VERTS = 400  # tests/test_parity.py's small synthetic model
 
@@ -94,18 +97,63 @@ def test_oracle_fit_reduces_energy(model, pipe):
     assert np.isfinite(out["joints3d"]).all()
 
 
-def test_certify_under_1mm(model, prior):
+def _recorded_certify(harness_mod, *args, **kw):
+    """``certify``'s report and the fit it certified: the last
+    ``run_our_fit`` of its restart chain."""
+    fits = []
+    real = harness_mod.run_our_fit
+
+    def record(*a, **k):
+        fits.append(real(*a, **k))
+        return fits[-1]
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(harness_mod, "run_our_fit", record)
+        report = harness_mod.certify(*args, **kw)
+    return report, fits[-1]
+
+
+@pytest.fixture(scope="module")
+def port_certified(model, prior):
+    """The port's certification on the 400-vertex model, 2 probe frames,
+    seed 0, on the CPU, with the fit it certified: run once for the two
+    tests that read it."""
+    return _recorded_certify(harness, model, prior=prior, n_frames=2,
+                             seed=0, device="cpu")
+
+
+def test_certify_under_1mm(port_certified):
     """The north-star certification: the polish chain — the oracle's
     optimizer started at the port's solution — moves it less than 1 mm
     MPJPE on clean synthetic observations."""
-    out = harness.certify(model, prior=prior, n_frames=2, seed=0,
-                          device="cpu")
+    out, _ = port_certified
     assert out["stage_parity"]["energy_rel_err"] < 1e-5
     assert out["certified"], out["fit_gap"]
     assert out["fit_gap"]["mpjpe_gap_mm_mean"] <= 1.0
     assert out["gt_mpjpe_mm_oracle"] < 500.0
     assert set(out["seconds"]) == {"stage_parity", "our_fit",
                                    "oracle_polish", "oracle_fit"}
+
+
+def test_certify_matches_jax(port_certified):
+    """The port's certify against JAX's on the same 400-vertex model,
+    prior and probe frames: both certified within 1 mm, and the two
+    packages' certified fits' joints3d ≤ 1 mm apart (the L-BFGS bound of
+    ROADMAP §C)."""
+    pytest.importorskip("tensorflow")
+    from tpu_pose.fitting import priors as jax_priors
+    from tpu_pose.models import smpl_data as jax_smpl_data
+    from tpu_pose.parity import harness as jax_harness
+    want, want_fit = _recorded_certify(
+        jax_harness, jax_smpl_data.synthetic_smpl(seed=0, num_verts=VERTS),
+        prior=jax_priors.synthetic_gmm_prior(0), n_frames=2, seed=0)
+    got, got_fit = port_certified
+    assert want["certified"] and got["certified"], (want, got)
+    assert got["fit_gap"]["mpjpe_gap_mm_mean"] <= 1.0
+    assert set(want) <= set(got)
+    mm = harness.root_aligned_mpjpe_mm(got_fit["joints3d"],
+                                       np.asarray(want_fit["joints3d"]))
+    assert mm.max() <= 1.0, mm
 
 
 def test_sweep_recovers_mismatched_sigma(model, prior):

@@ -10,7 +10,7 @@ import torch
 from tpu_pose.ops import preprocess as jax_pre
 from tpu_pose_torch.ops import preprocess as torch_pre
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 def _image(h, w, seed=0):

@@ -18,7 +18,7 @@ from tpu_pose_torch.ops import cuda_kernels
 from tpu_pose_torch.ops import quantize as quant_lib
 from tpu_pose_torch.utils import config as tc
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 KS = [1, 5, 9, 11]
 CS = [3, 32, 48]

@@ -22,7 +22,7 @@ from tpu_pose_torch.models import joints as joints_lib
 from tpu_pose_torch.ops import preprocess as pre
 from tpu_pose_torch.utils import config as tc
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 TIMEOUT = 120
 SIZES = ((64, 64), (48, 80), (100, 60))   # network-sized, wide, tall

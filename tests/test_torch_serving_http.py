@@ -26,7 +26,7 @@ from tpu_pose_torch.models import joints as joints_lib
 from tpu_pose_torch.serving_http import PoseHTTPServer
 from tpu_pose_torch.utils.config import CPMConfig, FitConfig, StageConfig
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 TIMEOUT = 120
 SMALL_CPM = CPMConfig(input_size=64, features=16, stage1_head_width=32,

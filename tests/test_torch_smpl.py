@@ -16,7 +16,7 @@ from tpu_pose_torch.fitting import priors as torch_priors
 from tpu_pose_torch.models import smpl as torch_smpl
 from tpu_pose_torch.models import smpl_data as torch_data
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 # Vertices/joints in metres: float32 sums over 6890 vertices and a 24-deep
 # chain of 4×4 products taken in another order, well under 1e-5 m.

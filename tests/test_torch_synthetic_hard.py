@@ -20,7 +20,7 @@ from tpu_pose_torch.models import joints as joints_lib
 from tpu_pose_torch.models import smpl_data
 from tpu_pose_torch.utils.config import CPMConfig
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 CFG = CPMConfig(input_size=128)     # small frames keep the suite fast
 JAX_CFG = JaxCPMConfig(input_size=128)

@@ -28,7 +28,7 @@ from tpu_pose_torch.fitting import temporal
 from tpu_pose_torch.models import smpl_data as torch_data
 from tpu_pose_torch.utils import config as tc
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 END_TOL = dict(rtol=0, atol=1e-3)
 

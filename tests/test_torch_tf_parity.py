@@ -1,10 +1,11 @@
 """The port's parity harness and TF converter against the JAX package's,
-where TensorFlow imports (every TensorFlow test of the port is in this
-file, so the import is paid once per worker): the port's float64 torch
-oracle against the JAX package's TF oracle (SMPL, energy and gradient,
-a staged fit), stage parity and certification against JAX's on the same
-inputs, the TF1-checkpoint converter, the day-one chain and the three
-CLIs at small size on the CPU."""
+where TensorFlow imports (the TensorFlow tests of the port are in this
+file, so the import is paid once per worker; the certification against
+JAX's shares the port's certification with test_torch_parity.py's and
+sits there): the port's float64 torch oracle against the JAX package's
+TF oracle (SMPL, energy and gradient, a staged fit), stage parity against
+JAX's on the same inputs, the TF1-checkpoint converter, the day-one chain
+and the three CLIs at small size on the CPU."""
 
 import dataclasses
 import functools
@@ -34,7 +35,7 @@ from tpu_pose_torch.tools import (convert_weights, parity_sweep,  # noqa
 from tpu_pose_torch.utils import config as tc  # noqa: E402
 from tpu_pose_torch.utils import tf_converter  # noqa: E402
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 VERTS = 400
 F64 = torch.float64
@@ -181,44 +182,6 @@ def test_stage_parity_matches_jax(model, prior, jax_model, jax_prior,
     for k, bound in bounds.items():
         assert got[k] <= bound and want[k] <= bound, (k, got[k], want[k])
         assert abs(got[k] - want[k]) <= bound, k
-
-
-def _recorded_certify(harness_mod, *args, **kw):
-    """``certify``'s report and the fit it certified: the last
-    ``run_our_fit`` of its restart chain."""
-    fits = []
-    real = harness_mod.run_our_fit
-
-    def record(*a, **k):
-        fits.append(real(*a, **k))
-        return fits[-1]
-
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(harness_mod, "run_our_fit", record)
-        report = harness_mod.certify(*args, **kw)
-    return report, fits[-1]
-
-
-@pytest.fixture(scope="module")
-def jax_certified(jax_model, jax_prior):
-    return _recorded_certify(jax_harness, jax_model, prior=jax_prior,
-                             n_frames=2, seed=0)
-
-
-def test_certify_matches_jax(model, prior, jax_certified):
-    """The port's certify against JAX's on the same 400-vertex model,
-    prior and probe frames: both certified within 1 mm, and the two
-    packages' certified fits' joints3d ≤ 1 mm apart (the L-BFGS bound of
-    ROADMAP §C)."""
-    want, want_fit = jax_certified
-    got, got_fit = _recorded_certify(harness, model, prior=prior,
-                                     n_frames=2, seed=0, device="cpu")
-    assert want["certified"] and got["certified"], (want, got)
-    assert got["fit_gap"]["mpjpe_gap_mm_mean"] <= 1.0
-    assert set(want) <= set(got)
-    mm = harness.root_aligned_mpjpe_mm(got_fit["joints3d"],
-                                       np.asarray(want_fit["joints3d"]))
-    assert mm.max() <= 1.0, mm
 
 
 # -- the TF1-checkpoint converter --------------------------------------------

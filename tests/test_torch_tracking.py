@@ -29,7 +29,7 @@ from tpu_pose_torch.fitting import temporal, tracking
 from tpu_pose_torch.models import cpm as torch_cpm
 from tpu_pose_torch.utils import config as tc
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 LEAF = [3 * j + a for j in (10, 11, 22, 23) for a in range(3)]
 DRIVEN = np.setdiff1d(np.arange(72), LEAF)

@@ -18,7 +18,7 @@ from tpu_pose_torch.utils import checkpoint, debug, metrics, profiling, viz
 from tpu_pose_torch.utils import tf_converter
 from tpu_pose_torch.utils.config import CPMConfig
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

@@ -68,6 +68,7 @@ import torch
 # The custom ops' registrations (and their plain versions): a loaded
 # program calls them.
 from tpu_pose_torch.ops import cuda_kernels  # noqa: F401
+from tpu_pose_torch.utils import world
 
 FORMAT_VERSION = 1
 FUNCTIONS = ("estimate_2d", "estimate_and_fit", "estimate_and_fit_multi",
@@ -239,13 +240,53 @@ def export_estimator(est, path: str, fn: str = "estimate_and_fit",
         raises, since a program runs on the device it was traced on.
       params_batch_hint: which side of the int8/float precision policy to
         bake when ``batch=None`` (a static ``batch`` overrides the hint).
-      n_devices: multi-GPU programs are not ported (ROADMAP A.21); any
-        value but None raises.
+      n_devices: None (default) exports a single-device program. An int
+        exports a data-parallel artifact: the program is the per-rank one
+        at ``batch / n_devices`` frames, and a loader in a world of at
+        least ``n_devices`` ranks (``torch.distributed``) runs each rank's
+        rows and gathers the outputs (``LoadedProgram``); collectives stay
+        outside the program. Needs a static ``batch`` divisible by
+        ``n_devices`` and a world of at least ``n_devices`` ranks. Every
+        rank calls this; rank 0 traces and writes, the others wait for it
+        and read its ``meta.json``. The video fits couple frames and do
+        not shard (ROADMAP A.21b).
       **fn_kwargs: static knobs of the multi-person path (``max_people``,
         ``min_person_score``, ...) and the video path's ``mode``.
 
     Returns the metadata dict that was written to ``meta.json``.
     """
+    if n_devices is None or world.world_size() == 1:
+        return _export_estimator(est, path, fn, batch, input_shape,
+                                 platforms, params_batch_hint, n_devices,
+                                 **fn_kwargs)
+    error = None
+    if world.is_main_process():
+        try:
+            meta = _export_estimator(est, path, fn, batch, input_shape,
+                                     platforms, params_batch_hint,
+                                     n_devices, **fn_kwargs)
+        except Exception as e:
+            error = f"{type(e).__name__}: {e}"
+            torch.distributed.broadcast_object_list([error], src=0)
+            raise
+    box = [error]
+    torch.distributed.broadcast_object_list(box, src=0)
+    if box[0] is not None:
+        raise ValueError(f"rank 0's export failed: {box[0]}")
+    if not world.is_main_process():
+        with open(os.path.join(path, _META_NAME)) as f:
+            meta = json.load(f)
+    return meta
+
+
+def _export_estimator(est, path: str, fn: str = "estimate_and_fit",
+                      batch: Optional[int] = None,
+                      input_shape: Optional[tuple] = None,
+                      platforms: Optional[Sequence[str]] = None,
+                      params_batch_hint: int = 1,
+                      n_devices: Optional[int] = None,
+                      **fn_kwargs) -> dict:
+    """The export itself, on this rank (see :func:`export_estimator`)."""
     if fn not in FUNCTIONS:
         raise ValueError(f"unknown fn {fn!r}; expected one of {FUNCTIONS}")
     if fn_kwargs and fn not in ("estimate_and_fit_multi",
@@ -253,9 +294,19 @@ def export_estimator(est, path: str, fn: str = "estimate_and_fit",
         raise ValueError(
             f"{fn} takes no extra kwargs, got {sorted(fn_kwargs)}")
     if n_devices is not None:
-        raise ValueError(
-            "sharded (multi-GPU data-parallel) export is not ported yet: "
-            "ROADMAP A.21; export a single-device program (n_devices=None)")
+        if batch is None:
+            raise ValueError("sharded export needs a static batch")
+        if batch % n_devices:
+            raise ValueError(
+                f"batch {batch} not divisible by n_devices {n_devices}")
+        if world.world_size() < n_devices:
+            raise ValueError(
+                f"need {n_devices} ranks to export the sharded program, "
+                f"the world has {world.world_size()}")
+        if fn == "estimate_and_fit_video":
+            raise ValueError(
+                "the video fits couple neighbouring frames and do not shard "
+                "over ranks (ROADMAP A.21b); export with n_devices=None")
     if est.fit_cfg.optimizer == "lbfgs" and fn != "estimate_2d":
         raise ValueError(
             "FitConfig(optimizer='lbfgs') does not export: its linesearch "
@@ -283,7 +334,7 @@ def export_estimator(est, path: str, fn: str = "estimate_and_fit",
 
     h, w = input_shape or (est.cpm_cfg.input_size, est.cpm_cfg.input_size)
     b_meta = "b" if batch is None else int(batch)
-    b_ex = 2 if batch is None else int(batch)
+    b_ex = 2 if batch is None else int(batch) // (n_devices or 1)
     if fn == "fit_smpl":
         p = est.cpm_cfg.num_joints
         rng = np.random.RandomState(0)
@@ -320,9 +371,10 @@ def export_estimator(est, path: str, fn: str = "estimate_and_fit",
         "input": {"shape": inputs_meta[0]["shape"],
                   "dtype": inputs_meta[0]["dtype"]},
         "inputs": inputs_meta,
-        "sharding": None,
+        "sharding": (None if n_devices is None else
+                     {"n_devices": int(n_devices), "axis": "data"}),
         "precision": precision,
-        "outputs": _out_spec(program),
+        "outputs": _out_spec(program, b_meta if n_devices else None),
         "estimator": {
             "refine_center": bool(est.refine_center),
             "refine_scale": bool(est.refine_scale),
@@ -343,9 +395,10 @@ def export_estimator(est, path: str, fn: str = "estimate_and_fit",
     return meta
 
 
-def _out_spec(program) -> dict:
+def _out_spec(program, batch=None) -> dict:
     """Output name → {shape, dtype} from the program's output node; the
-    symbolic batch prints as "b"."""
+    symbolic batch prints as "b". ``batch``: the global batch a sharded
+    program's per-rank leading dimension stands for."""
     from torch.utils import _pytree
     out_node = next(n for n in program.graph.nodes if n.op == "output")
     vals = [n.meta["val"] for n in out_node.args[0]]
@@ -357,9 +410,13 @@ def _out_spec(program) -> dict:
             d0 = n.meta["val"].shape[0]
             if isinstance(d0, torch.SymInt):
                 names[str(d0)] = "b"
-    return {name: {"shape": [names.get(str(d), str(d)) for d in v.shape],
-                   "dtype": str(v.dtype).removeprefix("torch.")}
-            for name, v in tree.items()}
+    out = {name: {"shape": [names.get(str(d), str(d)) for d in v.shape],
+                  "dtype": str(v.dtype).removeprefix("torch.")}
+           for name, v in tree.items()}
+    if batch is not None:
+        for spec in out.values():
+            spec["shape"][0] = str(batch)
+    return out
 
 
 def _params_quantized(params) -> bool:
@@ -400,12 +457,24 @@ class LoadedProgram:
     """A loaded deployment artifact: ``prog(frames)`` → dict of numpy
     arrays. Validates the input against the artifact's recorded spec and
     runs the program on its device, under its precision flags, without
-    autograd."""
+    autograd.
+
+    A sharded artifact (``meta["sharding"]``) needs a world of at least
+    ``n_devices`` ranks; every rank calls it with the global batch, runs
+    the rows of shard ``rank % n_devices`` and gathers the shards, so
+    each rank returns the whole batch's outputs."""
 
     def __init__(self, program, meta: dict):
         self._module = program.module()
         self.meta = meta
         self.device = _device_of(meta)
+        shard = meta.get("sharding")
+        self._n_shards = int(shard["n_devices"]) if shard else 1
+        if world.world_size() < self._n_shards:
+            raise ValueError(
+                f"artifact needs {self._n_shards} ranks "
+                f"({shard['axis']}-sharded), the world has "
+                f"{world.world_size()}")
 
     @property
     def fn(self) -> str:
@@ -457,8 +526,16 @@ class LoadedProgram:
         program's device, so a caller pipelining transfers (the serving
         dispatcher) keeps the launches asynchronous."""
         args = self._validate(args)
+        n = self._n_shards
+        if n > 1:
+            per = args[0].shape[0] // n
+            s = torch.distributed.get_rank() % n
+            args = tuple(a[s * per:(s + 1) * per] for a in args)
         with _precision(self.meta.get("precision")), torch.no_grad():
-            return self._module(*args)
+            out = self._module(*args)
+        if n > 1:
+            out = {k: world.gather_rows(v, keep=n) for k, v in out.items()}
+        return out
 
     def __call__(self, *args) -> dict:
         out = self.call_device(*args)

@@ -11,8 +11,10 @@ count before it is incremented, so the first scheduled update has
 learning rate 0, as in JAX. Parameters and moments stay float32; the
 forward runs in ``cfg.compute_dtype``.
 
-Single device. Data parallelism over several GPUs (the JAX step's
-``mesh`` argument) is not ported yet.
+With a ``mesh`` (``parallel/mesh.make_mesh``) the step is data-parallel:
+every rank takes its rows of the global batch, and the gradients and the
+loss are averaged over the ranks before the optimizer step, as the JAX
+step's ``pmean`` inside ``shard_map`` does. Parameters stay replicated.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import numpy as np
 import torch
 
 from tpu_pose_torch.models import cpm as cpm_lib
+from tpu_pose_torch.parallel import mesh as mesh_lib
 from tpu_pose_torch.utils.config import CPMConfig
 
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8
@@ -176,7 +179,7 @@ def _on_device(batch: dict, device: torch.device) -> dict:
 
 
 def make_train_step(cfg: CPMConfig, optimizer: TrainOptimizer,
-                    fake_quant: bool = False) -> Callable:
+                    mesh=None, fake_quant: bool = False) -> Callable:
     """Returns ``step(cpm, opt_state, batch) → (cpm, opt_state, loss)``:
     the supervision loss of ``batch`` (numpy arrays or tensors: images,
     center_maps, heatmaps[, joint_mask, heatmaps_stage1]), its gradient
@@ -184,12 +187,22 @@ def make_train_step(cfg: CPMConfig, optimizer: TrainOptimizer,
     applied to them in place. ``loss`` is a 0-d device tensor (read it
     when needed: reading waits for the step).
 
+    ``mesh``: data parallelism. Every rank calls ``step`` with the same
+    global batch (its size divisible by the mesh size) and the same
+    parameters (``mesh.replicate`` them once). Each computes the loss and
+    gradients of its rows (``mesh.shard_batch``); both are averaged over
+    the mesh before the optimizer step, so the global-norm clip sees the
+    averaged gradients and every rank applies the same update. With
+    ``joint_mask`` the loss is the mean of the shards' losses, as in JAX.
+
     ``fake_quant``: quantization-aware training, the forward on the
     :func:`fake_quant_params` view, so the trained weights land where
     int8 serving rounds them."""
 
     def step(cpm, opt_state, batch):
         params = dict(cpm.named_parameters())
+        if mesh is not None:
+            batch = mesh_lib.shard_batch(batch, mesh)
         b = _on_device(batch, next(iter(params.values())).device)
         with torch.enable_grad():
             view = fake_quant_params(cpm) if fake_quant else None
@@ -198,6 +211,8 @@ def make_train_step(cfg: CPMConfig, optimizer: TrainOptimizer,
                 joint_mask=b.get("joint_mask"),
                 stage1_heatmaps=b.get("heatmaps_stage1"), params=view)
             grads = torch.autograd.grad(loss, list(params.values()))
+        if mesh is not None:
+            *grads, loss = mesh_lib.pmean([*grads, loss], mesh)
         opt_state = optimizer.apply(params, dict(zip(params, grads)),
                                     opt_state)
         return cpm, opt_state, loss.detach()

@@ -17,6 +17,14 @@ CPM_JOINT_NAMES = [
 ]
 NUM_CPM_JOINTS = len(CPM_JOINT_NAMES)
 
+# SMPL 24-joint names (standard numbering).
+SMPL_JOINT_NAMES = [
+    "pelvis", "l_hip", "r_hip", "spine1", "l_knee", "r_knee", "spine2",
+    "l_ankle", "r_ankle", "spine3", "l_foot", "r_foot", "neck", "l_collar",
+    "r_collar", "head", "l_shoulder", "r_shoulder", "l_elbow", "r_elbow",
+    "l_wrist", "r_wrist", "l_hand", "r_hand",
+]
+
 # CPM joint index → SMPL joint index (LSP↔SMPL convention of the SMPLify
 # family; 'head' maps to the SMPL head joint).
 CPM_TO_SMPL = np.array(

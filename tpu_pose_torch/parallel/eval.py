@@ -1,5 +1,5 @@
-"""Dataset-scale evaluation on one device (port of
-``tpu_pose/parallel/eval.py``).
+"""Dataset-scale evaluation, on one device or data-parallel over a mesh
+(port of ``tpu_pose/parallel/eval.py``).
 
 Three streaming evaluators share one loop, :func:`_stream_eval`: a
 one-deep pipeline (launch batch i+1's estimator call, then accumulate
@@ -8,6 +8,13 @@ cursor and metric sums saved as JSON. Every metric is a float64 numpy
 twin from ``utils/metrics.py``, read from one host copy per result
 field per batch.
 
+With a ``mesh`` (``parallel/mesh.make_mesh``) every rank runs the same
+evaluator on the same global batches: :func:`sharded_fused_fn` and
+:func:`sharded_2d_fn` compute this rank's rows and gather the rest, so
+each rank accumulates the single-device metrics. An uneven last batch is
+edge-padded to the mesh size and its results sliced back. Rank 0 alone
+writes the cursor file.
+
 - :func:`evaluate_h36m_style` — the fused ``estimate_and_fit`` scored by
   MPJPE Protocol 1, the scaled MPJPE, PA-MPJPE, PCKh of the decoded 2D
   joints and the mesh-level PVE / PA-PVE;
@@ -15,14 +22,11 @@ field per batch.
   torso PCK, with the per-joint table and the AUC of the PCK curve;
 - :func:`evaluate_oks` — ``estimate_2d`` under COCO's OKS with the AP
   ladder.
-
-The JAX package also shards these over a device mesh (``mesh``,
-``sharded_fused_fn``, ``sharded_2d_fn``); multi-GPU evaluation is not
-ported yet.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import os
@@ -31,6 +35,7 @@ from typing import Callable, Iterator, Optional
 import numpy as np
 import torch
 
+from tpu_pose_torch.parallel import mesh as mesh_lib
 from tpu_pose_torch.utils import metrics as metrics_lib
 
 
@@ -40,11 +45,70 @@ def _host(x) -> np.ndarray:
     return np.asarray(x)
 
 
+def _float_estimator(estimator):
+    """A shallow copy that runs the float (f32/bf16) CPM at every batch
+    size: the sharded functions never take the int8 set, whatever the
+    global batch (an already-quantized CPM has no float twin and stays)."""
+    est = copy.copy(estimator)
+    if estimator.cpm_bf16 is not None:
+        est.cpm = estimator.cpm_bf16
+    est.cpm_bf16 = None
+    return est
+
+
+def _replicate_estimator(est, mesh) -> None:
+    """Rank 0's CPM, SMPL model, prior and init head on every rank."""
+    mesh_lib.replicate(est.cpm, mesh)
+    mesh_lib.replicate(est.smpl_model, mesh)
+    if est.prior is not None:
+        mesh_lib.replicate(est.prior, mesh)
+    if est.init_head is not None:
+        mesh_lib.replicate(est.init_head, mesh)
+
+
+def sharded_fused_fn(estimator, mesh):
+    """``estimate_and_fit`` data-parallel over ``mesh``: ``run(images)``
+    on the global batch (its size divisible by the mesh size) fits this
+    rank's rows and gathers every output field, so each rank returns the
+    whole batch's :class:`~tpu_pose_torch.api.EstimateAndFitResult`. The
+    CPM is the float set (:func:`_float_estimator`); the parameters are
+    replicated from rank 0 once, here. Every rank must call ``run``."""
+    est = _float_estimator(estimator)
+    _replicate_estimator(est, mesh)
+
+    def run(images):
+        rows = mesh_lib.shard_rows(images.shape[0], mesh)
+        return mesh_lib.gather_batch(est.estimate_and_fit(images[rows]),
+                                     mesh)
+
+    return run
+
+
+def sharded_2d_fn(estimator, mesh):
+    """``estimate_2d`` with the estimator's front-end knobs, data-parallel
+    over ``mesh``: ``run(images)`` → the global batch's (heatmaps,
+    joints2d, conf) on every rank, as :func:`sharded_fused_fn`."""
+    from tpu_pose_torch.api import Estimate2DResult
+    est = _float_estimator(estimator)
+    _replicate_estimator(est, mesh)
+
+    def run(images):
+        rows = mesh_lib.shard_rows(images.shape[0], mesh)
+        hm, joints, conf = est._front_end(images[rows], source_frame=True)
+        return mesh_lib.gather_batch(Estimate2DResult(hm, joints, conf),
+                                     mesh)
+
+    return run
+
+
 class _JsonState:
-    """Atomic JSON save and a load that starts over on a schema change
-    (partial sums of another metric layout cannot be resumed)."""
+    """Atomic JSON save (rank 0 only) and a load that starts over on a
+    schema change (partial sums of another metric layout cannot be
+    resumed)."""
 
     def save(self, path: str):
+        if not mesh_lib.is_main_process():
+            return
         # A crash mid-save must not truncate the resume cursor.
         tmp = path + ".tmp"
         with open(tmp, "w") as f:
@@ -80,30 +144,39 @@ class EvalState(_JsonState):
     sum_pa_pve: float = 0.0        # Procrustes-aligned per-vertex error
 
 
-def _stream_eval(run, batches, state, accumulate,
+def _stream_eval(run, batches, state, accumulate, mesh,
                  checkpoint_path: Optional[str]) -> None:
     """The evaluators' shared loop: skip the batches before
     ``state.cursor`` (resume), launch batch i+1's ``run`` before
     accumulating batch i (its host reads wait for the device), and save
-    the state at the end."""
+    the state at the end. With a mesh, a batch whose size does not divide
+    by the mesh size is edge-padded up to a multiple; ``accumulate``
+    reads only the real rows."""
+    n_dev = mesh.size() if mesh is not None else 1
     pending = None
     for i, batch in enumerate(batches):
         if i < state.cursor:
             continue
         images = batch["images"]
+        n_real = int(images.shape[0])
+        if n_real % n_dev:
+            images, _ = mesh_lib.pad_to_multiple(images, n_dev)
         res = run(images)
         if pending is not None:
             accumulate(*pending)
-        pending = (res, batch, int(images.shape[0]), i)
+        pending = (res, batch, n_real, i)
     if pending is not None:
         accumulate(*pending)
     if checkpoint_path:
         state.save(checkpoint_path)
+        if mesh is not None:   # the file is there before any rank reads it
+            torch.distributed.barrier(group=mesh.get_group())
 
 
 def evaluate_h36m_style(
     estimator,
     batches: Iterator,          # dicts: images (B,H,W,3), gt_joints3d
+    mesh=None,
     select_joints: Optional[Callable] = None,
     checkpoint_path: Optional[str] = None,
     save_every: int = 10,
@@ -136,7 +209,8 @@ def evaluate_h36m_style(
     (whose root is ``root_index``). ``primary_protocol`` ('p1' | 'scaled'
     | 'pa') picks what the ``mpjpe`` key repeats. ``checkpoint_path``:
     the JSON cursor file, saved every ``save_every`` batches and at the
-    end; an existing one resumes the run.
+    end; an existing one resumes the run. ``mesh``: run
+    :func:`sharded_fused_fn` over it (every rank gets the same metrics).
     """
     from tpu_pose_torch.models import smpl as smpl_lib
 
@@ -189,8 +263,9 @@ def evaluate_h36m_style(
         if checkpoint_path and (batch_index + 1) % save_every == 0:
             state.save(checkpoint_path)
 
-    _stream_eval(estimator.estimate_and_fit, batches, state, accumulate,
-                 checkpoint_path)
+    run = (sharded_fused_fn(estimator, mesh) if mesh is not None
+           else estimator.estimate_and_fit)
+    _stream_eval(run, batches, state, accumulate, mesh, checkpoint_path)
     n = max(state.n, 1)
     out = {
         "mpjpe_p1": state.sum_mpjpe_p1 / n,
@@ -232,6 +307,7 @@ class Eval2DState(_JsonState):
 def evaluate_pckh(
     estimator,
     batches: Iterator,          # dicts: images, gt_joints2d[, conf, headsize]
+    mesh=None,
     threshold: float = 0.5,
     norm: str = "head",
     checkpoint_path: Optional[str] = None,
@@ -249,7 +325,8 @@ def evaluate_pckh(
     Batches carry ``images`` and ``gt_joints2d`` (B, 14, 2) in the same
     pixel frame; ``conf`` (B, 14) > 0 marks the annotated joints. Returns
     the overall fraction (``pckh``), ``per_joint``, the 10-point
-    ``per_threshold`` curve and its ``auc``.
+    ``per_threshold`` curve and its ``auc``. ``mesh``: run
+    :func:`sharded_2d_fn` over it.
     """
     if norm not in ("head", "torso"):
         raise ValueError(f"norm must be 'head' or 'torso', got {norm!r}")
@@ -295,8 +372,9 @@ def evaluate_pckh(
         if checkpoint_path and (batch_index + 1) % save_every == 0:
             state.save(checkpoint_path)
 
-    _stream_eval(estimator.estimate_2d, batches, state, accumulate,
-                 checkpoint_path)
+    run = (sharded_2d_fn(estimator, mesh) if mesh is not None
+           else estimator.estimate_2d)
+    _stream_eval(run, batches, state, accumulate, mesh, checkpoint_path)
 
     from tpu_pose_torch.models import joints as joints_lib
     n = max(state.n, 1)
@@ -334,6 +412,7 @@ class EvalOKSState(_JsonState):
 def evaluate_oks(
     estimator,
     batches: Iterator,          # dicts: images, gt_joints2d[, conf, area]
+    mesh=None,
     checkpoint_path: Optional[str] = None,
     save_every: int = 10,
 ):
@@ -345,7 +424,7 @@ def evaluate_oks(
     0.50:0.05:0.95 of the fraction of people with OKS ≥ t), ``ap50``,
     ``ap75`` and ``per_threshold``: one hypothesis per ground-truth person,
     so matching is the identity and precision equals recall (the top-down
-    convention)."""
+    convention). ``mesh``: run :func:`sharded_2d_fn` over it."""
     state = (EvalOKSState.load(checkpoint_path) if checkpoint_path
              else EvalOKSState())
 
@@ -366,8 +445,9 @@ def evaluate_oks(
         if checkpoint_path and (batch_index + 1) % save_every == 0:
             state.save(checkpoint_path)
 
-    _stream_eval(estimator.estimate_2d, batches, state, accumulate,
-                 checkpoint_path)
+    run = (sharded_2d_fn(estimator, mesh) if mesh is not None
+           else estimator.estimate_2d)
+    _stream_eval(run, batches, state, accumulate, mesh, checkpoint_path)
 
     n = max(state.n, 1)
     per_t = {t: state.hits[k] / n for k, t in enumerate(OKS_THRESHOLDS)}

@@ -67,10 +67,15 @@ def main(argv=None) -> dict:
     from tpu_pose_torch.models import cpm as cpm_lib
     from tpu_pose_torch.models import smpl_data
     from tpu_pose_torch.parallel import eval as eval_lib
+    from tpu_pose_torch.parallel import mesh as mesh_lib
     from tpu_pose_torch.utils import tf_converter
 
     if not (args.synthetic_batches or args.data_dir):
         raise SystemExit("provide --data_dir or --synthetic_batches")
+    # Under torchrun with more than one rank: every rank evaluates the same
+    # global batches, each fitting its rows; rank 0 prints and writes.
+    mesh = mesh_lib.launcher_mesh(args.device)
+    say = mesh_lib.rank0_print
     kw = dict(refine_center=args.refine_center,
               refine_scale=args.refine_scale, flip_tta=args.flip_tta,
               scale_tta=tuple(float(s) for s in args.scale_tta.split(",")
@@ -84,7 +89,7 @@ def main(argv=None) -> dict:
                 device=args.device),
             smpl_data.synthetic_smpl(seed=0, device=args.device), **kw)
     else:
-        print("note: no weights supplied — synthetic estimator", flush=True)
+        say("note: no weights supplied — synthetic estimator", flush=True)
         est = PoseEstimator.create_synthetic(seed=0, **kw)
 
     if args.synthetic_batches:
@@ -101,25 +106,25 @@ def main(argv=None) -> dict:
         else:
             keys.append("headsize")
         batches = pipeline.batches(args.data_dir, args.batch,
-                                   keys=tuple(keys))
+                                   keys=tuple(keys), shard_by_process=False)
 
     if args.protocol == "oks":
         out = eval_lib.evaluate_oks(
-            est, batches, checkpoint_path=args.resume or None)
-        print(f"frames={out['num_frames']}  "
+            est, batches, mesh=mesh, checkpoint_path=args.resume or None)
+        say(f"frames={out['num_frames']}  "
               f"meanOKS={out['mean_oks']:.3f}  "
               f"AP={out['ap'] * 100:.1f}  AP50={out['ap50'] * 100:.1f}  "
               f"AP75={out['ap75'] * 100:.1f}", flush=True)
         return out
     out = eval_lib.evaluate_pckh(
-        est, batches, threshold=args.threshold, norm=args.norm,
+        est, batches, mesh=mesh, threshold=args.threshold, norm=args.norm,
         checkpoint_path=args.resume or None)
     name = "PCKh" if args.norm == "head" else "PCK(torso)"
-    print(f"frames={out['num_frames']}  "
+    say(f"frames={out['num_frames']}  "
           f"{name}@{args.threshold}={out['pckh'] * 100:.1f}%  "
           f"AUC(0..{args.threshold})={out['auc'] * 100:.1f}%", flush=True)
     for joint, v in out["per_joint"].items():
-        print(f"  {joint:12s} {v * 100:5.1f}%", flush=True)
+        say(f"  {joint:12s} {v * 100:5.1f}%", flush=True)
     return out
 
 

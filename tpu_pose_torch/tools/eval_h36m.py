@@ -67,10 +67,15 @@ def main(argv=None) -> dict:
     from tpu_pose_torch.fitting import priors as priors_lib
     from tpu_pose_torch.models import joints as joints_lib
     from tpu_pose_torch.parallel import eval as eval_lib
+    from tpu_pose_torch.parallel import mesh as mesh_lib
     from tpu_pose_torch.utils.config import CPMConfig, FitConfig
 
     if not (args.synthetic_batches or args.data_dir):
         raise SystemExit("provide --data_dir or --synthetic_batches")
+    # Under torchrun with more than one rank: every rank evaluates the same
+    # global batches, each fitting its rows; rank 0 prints and writes.
+    mesh = mesh_lib.launcher_mesh(args.device)
+    say = mesh_lib.rank0_print
     # Protocol 1 scores absolute geometry: the perspective camera.
     camera = args.camera or (
         "perspective" if args.protocol == "p1" else "weak_perspective")
@@ -87,7 +92,7 @@ def main(argv=None) -> dict:
                                    for i in range(n)]))
             s_img = int(src0[0]["images"].shape[0])
             focal_kw["focal"] = med * CPMConfig().input_size / s_img
-            print(f"auto focal: median shard focal_px {med:.1f} "
+            say(f"auto focal: median shard focal_px {med:.1f} "
                   f"(image {s_img}px) → {focal_kw['focal']:.1f} px in "
                   f"the network frame", flush=True)
     fit_cfg = FitConfig(camera_model=camera, **focal_kw)
@@ -107,7 +112,7 @@ def main(argv=None) -> dict:
             fit_cfg=fit_cfg, fit_restarts=args.restarts, prior=prior,
             device=args.device)
     else:
-        print("note: no weights supplied — synthetic estimator", flush=True)
+        say("note: no weights supplied — synthetic estimator", flush=True)
         est = PoseEstimator.create_synthetic(
             seed=0, fit_cfg=fit_cfg, fit_restarts=args.restarts, prior=prior,
             device=args.device)
@@ -124,7 +129,7 @@ def main(argv=None) -> dict:
             keys += [k for k in ("gt_joints2d", "gt_theta", "gt_beta")
                      if k in src[0]]
         batches = pipeline.batches(args.data_dir, args.batch,
-                                   keys=tuple(keys))
+                                   keys=tuple(keys), shard_by_process=False)
 
     select = None
     if args.h36m_joints:
@@ -142,7 +147,7 @@ def main(argv=None) -> dict:
 
         batches = to_h36m_gt(batches)
     out = eval_lib.evaluate_h36m_style(
-        est, batches, select_joints=select,
+        est, batches, mesh=mesh, select_joints=select,
         checkpoint_path=args.resume or None,
         primary_protocol=args.protocol)
     line = (f"frames={out['num_frames']}  camera={camera}  "
@@ -154,7 +159,7 @@ def main(argv=None) -> dict:
     if "pve" in out:
         line += (f"  PVE={out['pve'] * 1000:.1f} mm  "
                  f"PA-PVE={out['pa_pve'] * 1000:.1f} mm")
-    print(line, flush=True)
+    say(line, flush=True)
     return out
 
 

@@ -46,8 +46,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="estimate_and_fit_video fit mode: smooth | temporal "
                    "| independent")
     p.add_argument("--n_devices", type=int, default=0,
-                   help="0 = single-device program; multi-GPU programs are "
-                   "not ported yet (ROADMAP A.21)")
+                   help="0 = single-device program; N = a data-parallel "
+                   "artifact over N ranks (static --batch divisible by N; "
+                   "under torchrun --nproc_per_node N rank 0 writes it)")
     p.add_argument("--batch", type=int, default=0,
                    help="static batch size; 0 = symbolic (one artifact, "
                    "any batch)")
@@ -117,7 +118,10 @@ def main(argv=None) -> None:
         if not info["ok"]:
             sys.exit(1)
         return
+    from tpu_pose_torch.parallel import mesh as mesh_lib
     platforms = tuple(p for p in args.platforms.split(",") if p) or ("cuda",)
+    if args.n_devices and "WORLD_SIZE" in os.environ:
+        mesh_lib.init_world(platforms[0])
     est = _estimator(args, platforms[0] if len(platforms) == 1 else "cuda")
     t0 = time.perf_counter()
     if args.fn in ("video_stream", "video_multi_stream"):
@@ -156,7 +160,7 @@ def main(argv=None) -> None:
     if args.smoke:
         _smoke(record, meta, args.out, args.fn, args.batch,
                est.fit_cfg.img_size)
-    print(json.dumps(record))
+    mesh_lib.rank0_print(json.dumps(record))
 
 
 def run():

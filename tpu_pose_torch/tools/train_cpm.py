@@ -6,6 +6,12 @@ weights as the CPM npz both packages load.
   python -m tpu_pose_torch.tools.train_cpm --synthetic --steps 200 \\
       --batch 32 --ckpt_dir ckpt --export cpm_weights.npz
 
+Data-parallel over N GPUs: ``torchrun --nproc_per_node N -m
+tpu_pose_torch.tools.train_cpm ...``. ``--batch`` stays the global batch:
+every rank reads the same batches, trains on its rows and averages the
+gradients (``models/cpm_train.make_train_step(mesh=)``); rank 0 alone
+prints, checkpoints and exports.
+
 Shards with stored targets (``images``, ``center_maps``, ``heatmaps``)
 train as they are; converter shards (``images``, ``gt_joints2d``,
 ``conf``; ``tools/convert_dataset.py``) get painted targets, a joint mask
@@ -109,7 +115,8 @@ def _painted_batches(data_dir, batch, cfg, flip_prob=0.5, sigma=3.0,
     size = cfg.input_size
     for b in pipeline.batches(data_dir, batch,
                               keys=("images", "gt_joints2d", "conf"),
-                              shuffle=True, num_epochs=10_000):
+                              shuffle=True, num_epochs=10_000,
+                              shard_by_process=False):
         imgs = np.array(b["images"])
         joints = np.array(b["gt_joints2d"], np.float32)
         conf = np.array(b["conf"], np.float32)
@@ -143,6 +150,7 @@ def main(argv=None) -> None:
 
     from tpu_pose_torch.data import pipeline, synthetic
     from tpu_pose_torch.models import cpm_train, smpl_data
+    from tpu_pose_torch.parallel import mesh as mesh_lib
     from tpu_pose_torch.utils import checkpoint as ckpt_lib
     from tpu_pose_torch.utils import profiling
     from tpu_pose_torch.utils.config import CPMConfig
@@ -150,14 +158,21 @@ def main(argv=None) -> None:
     if not (args.synthetic or args.data_dir):
         raise SystemExit("provide --data_dir or --synthetic")
     cfg = CPMConfig(input_size=args.input_size)
+    mesh = mesh_lib.launcher_mesh(args.device)
+    main_rank = mesh_lib.is_main_process()
+    say = mesh_lib.rank0_print
     cpm, opt_state, opt = cpm_train.init_train_state(
         0, cfg, lr=args.lr, total_steps=args.steps, device=args.device)
     start_step = 0
     if args.ckpt_dir and ckpt_lib.latest_step(args.ckpt_dir) is not None:
         start_step, cpm, opt_state = ckpt_lib.restore_train_state(
             args.ckpt_dir, cpm)
-        print(f"resumed from step {start_step}", flush=True)
-    step_fn = cpm_train.make_train_step(cfg, opt, fake_quant=args.qat)
+        say(f"resumed from step {start_step}", flush=True)
+    step_fn = cpm_train.make_train_step(cfg, opt, mesh=mesh,
+                                        fake_quant=args.qat)
+    if mesh is not None:
+        mesh_lib.replicate(cpm, mesh)
+        opt_state = mesh_lib.replicate(opt_state, mesh)
 
     if args.synthetic:
         model = smpl_data.synthetic_smpl(seed=0, device="cpu")
@@ -172,9 +187,9 @@ def main(argv=None) -> None:
             batches = pipeline.batches(
                 args.data_dir, args.batch,
                 keys=("images", "center_maps", "heatmaps"),
-                shuffle=True, num_epochs=10_000)
+                shuffle=True, num_epochs=10_000, shard_by_process=False)
         else:
-            print("painting CPM targets from gt_joints2d "
+            say("painting CPM targets from gt_joints2d "
                   f"(flip_aug={args.flip_aug})", flush=True)
             batches = _painted_batches(
                 args.data_dir, args.batch, cfg,
@@ -187,18 +202,18 @@ def main(argv=None) -> None:
             break
         cpm, opt_state, loss = step_fn(cpm, opt_state, batch)
         if (step + 1) % args.log_every == 0:
-            print(f"step {step + 1}: loss {float(loss):.6f}", flush=True)
-        if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
+            say(f"step {step + 1}: loss {float(loss):.6f}", flush=True)
+        if main_rank and args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
             ckpt_lib.save_train_state(args.ckpt_dir, step + 1, cpm,
                                       opt_state)
 
     final = float("nan") if loss is None else profiling.sync(loss)
-    if args.ckpt_dir:
+    if main_rank and args.ckpt_dir:
         ckpt_lib.save_train_state(args.ckpt_dir, args.steps, cpm, opt_state)
-    if args.export:
+    if main_rank and args.export:
         ckpt_lib.save_cpm_params(args.export, cpm)
-        print(f"exported weights to {args.export}", flush=True)
-    print(f"done: {args.steps} steps, final loss {final:.6f}", flush=True)
+        say(f"exported weights to {args.export}", flush=True)
+    say(f"done: {args.steps} steps, final loss {final:.6f}", flush=True)
 
 
 def run():

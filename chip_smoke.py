@@ -118,7 +118,17 @@ port's dependencies (torch, numpy). It
    ``export_multi``, ``export_streams``: the same perms and frame masks
    as the live sessions); the GPU artifact against the CPU artifact of a
    small model (``export_small_reference``); and the selfcheck's section
-   8 inside ``selfcheck_main_path``;
+   8 inside ``selfcheck_main_path``; and, in a process of their own
+   beside the hard-set phases (``phase_export_new_paths``), the exports
+   of L-BFGS fits, of the int8 CPM with a symbolic batch and of the video
+   fits with a symbolic T: the fit-extras estimator's L-BFGS
+   ``estimate_and_fit`` at batch 8 against the live call under
+   deterministic algorithms, with its linesearch iterations
+   (``export_lbfgs``), the int8 ``estimate_2d`` with a symbolic batch at
+   1, 8 and 16, bit-equal to live, with B2's grouped launches as computed
+   and B2's functional gather held against the in-place one
+   (``export_int8_symbolic``), and the video fits with a symbolic T,
+   smooth at T = 8 and 16, temporal at 8 (``export_video_symbolic``);
 15. runs the parity harness's tools: where tensorflow imports, writes
    the full-width CPM's weights as TF1 checkpoints in each naming style
    and converts them back bit for bit (``tf_converter_check``, else one
@@ -131,8 +141,9 @@ port's dependencies (torch, numpy). It
    eval, B1 once per batch);
 16. runs the data-parallel layer (``tpu_pose_torch/parallel/mesh.py``)
    in a process of its own beside the sweep, in a world of this one card
-   over NCCL (the day-one CLI and the streaming exports also run in
-   processes of their own, from the start of the hard-set phases):
+   over NCCL (the day-one CLI, the streaming exports and the exports of
+   ``phase_export_new_paths`` also run in processes of their own, from
+   the start of the hard-set phases):
    ``sharded_fused_fn`` against the live call (``sharded_main_path``),
    ``evaluate_h36m_style`` and ``evaluate_pckh`` with the mesh against
    them without it (``sharded_eval``), ``make_train_step(mesh=)``
@@ -378,9 +389,26 @@ def conv_input_hw(cfg: CPMConfig) -> dict:
     return hw
 
 
+def scan_first_step_repeats() -> int:
+    """How many extra times this torch's eager ``scan`` runs its first
+    step (torch 2.11: once, to learn its outputs' shapes; later versions:
+    0): an exported program's loops run their first step that much more
+    often."""
+    from torch._higher_order_ops.scan import scan_op
+    calls = [0]
+
+    def body(carry, x):
+        calls[0] += 1
+        return carry + x, x.clone()
+
+    scan_op(body, [torch.zeros(())], [torch.ones(3)], ())
+    return calls[0] - 3
+
+
 def int8_launches(qcpm, cfg: CPMConfig, batch: int, dynamic: bool,
                   stage1_runs: int = 1, people: int = 1,
-                  crop: bool = False) -> dict:
+                  crop: bool = False, grouped: bool = False,
+                  scan_repeats: int = 0) -> dict:
     """B2's launches in one int8 CPM pass over ``batch`` frames: one
     quantize pass per 1×1 conv, one fused gather per tile of every k×k
     conv (``ops/quantize._tiles`` at the batch the conv runs at, as
@@ -390,7 +418,11 @@ def int8_launches(qcpm, cfg: CPMConfig, batch: int, dynamic: bool,
     refinement stages). ``people`` > 1: an ``estimate_2d_multi`` pass,
     whose refinement stages run on the batch·people fold (stage 1 and the
     refinement trunk at the batch); ``crop``: its crop pass, the whole
-    network once more at batch·people."""
+    network once more at batch·people. ``grouped``: a pass with a symbolic
+    batch (an artifact exported with ``batch=None``), whose gathers are
+    the tiles of one group of ``ops/quantize._group_tiles`` for each group
+    of the batch padded to whole groups, and ``scan_repeats`` more times
+    (:func:`scan_first_step_repeats`)."""
     hw = conv_input_hw(cfg)
     count = {"quantize_act": 0, "quantize_im2col": 0,
              "quantize_act_absmax": 0}
@@ -410,8 +442,14 @@ def int8_launches(qcpm, cfg: CPMConfig, batch: int, dynamic: bool,
                 continue
             n_pad, k_pad = layer.w_int8.shape
             h = hw[name]
-            count["quantize_im2col"] += len(list(quantize_lib._tiles(
-                b, h, h * (k_pad + 8 * n_pad))))
+            row_bytes = h * (k_pad + 8 * n_pad)
+            if grouped:
+                g, tiles = quantize_lib._group_tiles(h, row_bytes)
+                count["quantize_im2col"] += (-(-b // g) + scan_repeats) \
+                    * len(tiles)
+            else:
+                count["quantize_im2col"] += len(list(quantize_lib._tiles(
+                    b, h, row_bytes)))
     return count
 
 
@@ -3660,6 +3698,234 @@ def phase_export_streams(est: PoseEstimator = None) -> dict:
     return launches
 
 
+EXPORT_NEW_OUT = "build/chip_smoke_export_new"   # its own process
+EXPORT_LBFGS_BATCH = 8
+INT8_SYMBOLIC_HINT = 16                 # params_batch_hint of its export
+INT8_SYMBOLIC_BATCHES = (1, 8, 16)
+VIDEO_SYMBOLIC_T = (8, 16)
+VIDEO_SYMBOLIC_TEMPORAL_T = 8
+
+
+def _cond_calls(prog) -> list:
+    """A counter of the calls of every ``while_loop`` condition of a loaded
+    program (the L-BFGS linesearches): ``[n]``, read after a call. Each
+    linesearch calls its condition once per iteration and once more when
+    it stops."""
+    calls = [0]
+    for name, sub in prog._module.named_modules():
+        if name.rsplit(".", 1)[-1].startswith("while_loop_cond"):
+            sub.register_forward_hook(
+                lambda *_: calls.__setitem__(0, calls[0] + 1))
+    return calls
+
+
+def phase_export_lbfgs(est: PoseEstimator, head: dict,
+                       images: np.ndarray) -> dict:
+    """The fit-extras estimator (``extras_fit_cfg``: the default schedule
+    as L-BFGS stages, the capsule term on the pose stages; the learned
+    init ``head``) exported as ``estimate_and_fit`` at a static batch of
+    8: each stage a ``scan`` over its steps with a ``while_loop``
+    linesearch. Artifact against the live call on the same frames, both
+    under :class:`Deterministic`: joints3d within 1 mm, θ's gap stated;
+    the linesearch iterations per step in the artifact (its loops'
+    condition calls) against the live fit's host reads; B1 once per
+    call, no B2."""
+    cfg = extras_fit_cfg()
+    ext = PoseEstimator(est.cpm, est.smpl_model, est.prior, est.cpm_cfg,
+                        cfg, init_head=head, device=DEVICE)
+    path = f"{EXPORT_NEW_OUT}/lbfgs"
+    _, export_s, save_s, mb = _export_timed(
+        lambda p: export_lib.export_estimator(ext, p, fn="estimate_and_fit",
+                                              batch=images.shape[0]), path)
+    prog = export_lib.load(path)
+    conds = _cond_calls(prog)
+    steps = sum(st.iters for st in cfg.stages)
+    per_search = []
+    zoom = lbfgs_lib.zoom_linesearch
+
+    def counted_zoom(*args):
+        before = lbfgs_lib.COUNTS["host_reads"]
+        out = zoom(*args)
+        per_search.append(lbfgs_lib.COUNTS["host_reads"] - before)
+        return out
+
+    with Deterministic(), mock.patch.object(lbfgs_lib, "zoom_linesearch",
+                                            counted_zoom):
+        lbfgs_lib.reset_counts()
+        live, live_l, live_s = _counted(lambda: ext.estimate_and_fit(images))
+        live_iters = lbfgs_lib.COUNTS["host_reads"]
+        out, art_l, art_s = _counted(lambda: prog(images))
+    # Each linesearch calls its condition once more than it iterates; a
+    # torch whose scan runs the first step twice runs each stage's first
+    # linesearch twice.
+    repeats = scan_first_step_repeats()
+    firsts = np.cumsum([0] + [st.iters for st in cfg.stages])[:-1]
+    art_iters = conds[0] - (steps + repeats * len(cfg.stages))
+    want_iters = live_iters + repeats * sum(per_search[i] for i in firsts)
+    gap = _artifact_gap(out, live)
+    exact = {k: bool(np.array_equal(out[k], getattr(live, k).cpu().numpy()))
+             for k in ("joints2d", "theta", "joints3d")}
+    emit({"phase": "export_lbfgs", "batch": images.shape[0],
+          "lbfgs_steps": steps, "export_s": export_s, "save_s": save_s,
+          "program_mb": mb, "live_s": live_s, "artifact_s": art_s,
+          "linesearch_iterations_per_step_live": live_iters / steps,
+          "linesearch_iterations_per_step_artifact": art_iters / steps,
+          "scan_first_step_repeats": repeats,
+          "artifact_iterations_expected": want_iters,
+          "launches_live": live_l, "launches_artifact": art_l,
+          "bit_equal": exact, **gap})
+    check(gap["joints3d_mpjpe_mm"] <= ARTIFACT_MPJPE_MM,
+          f"L-BFGS artifact vs live: {gap}")
+    # The same arithmetic on the same values takes the same linesearch
+    # decisions: where the outputs are bit-equal, so are the iterations.
+    check(art_iters == want_iters or not all(exact.values()),
+          f"L-BFGS artifact ran {art_iters} linesearch iterations, "
+          f"expected {want_iters} (live fit {live_iters})")
+    check(0 < art_iters <= steps * lbfgs_lib.MAX_LINESEARCH_STEPS,
+          f"L-BFGS artifact ran {art_iters} linesearch iterations")
+    check(art_l == live_l == {**B2_NONE, "soft_argmax": 1},
+          f"L-BFGS artifact launched {art_l}, live {live_l}")
+    return art_l
+
+
+def phase_export_int8_symbolic(images: np.ndarray) -> dict:
+    """An int8 estimator (``int8_min_batch=4``, 8 calibration frames, no
+    ``cpm_microbatch``) exported as ``estimate_2d`` with a symbolic batch
+    (``params_batch_hint`` 16): its convs tile by groups of images
+    (``ops/quantize._int8_conv_grouped``). Run at batch 1, 8 and 16
+    against the live call on the same int8 weights (at batch 1, below
+    ``int8_min_batch``, the artifact still serves its baked int8 CPM):
+    joints2d and conf bit-equal (the integer GEMM is exact whatever the
+    tiles, and B2 is bit-exact); B2's launches those of
+    ``int8_launches(grouped=True)``, the live call's those of the static
+    tiles, B1 once. First, B2's functional gather (the form the
+    program's scan bodies call) against the in-place one, bit for bit, on
+    every tile of ``phase_quantize_im2col_check``'s cases."""
+    tiles = 0
+    for name, x, a_scale, k, case_tiles in _im2col_cases():
+        scale = (None if x.dtype == torch.int8
+                 else cuda_kernels.act_scale_cuda(x, a_scale))
+        for tile in case_tiles:
+            want = cuda_kernels.quantize_im2col_cuda(
+                x, scale, k, tile, _rows_buffer(x, k, tile))
+            got = cuda_kernels.quantize_im2col_tile_cuda(
+                x, scale, k, tile, _pad8(k * k * x.shape[3]))
+            check(torch.equal(got, want),
+                  f"functional quantize_im2col vs in-place, {name} {tile}")
+            tiles += 1
+    size = MAIN_CPM.input_size
+    est8 = PoseEstimator.create_synthetic(
+        seed=0, cpm_cfg=MAIN_CPM, quantize=True, int8_min_batch=4,
+        calibration_images=_frames(8, size, size, seed=1), device=DEVICE)
+    path = f"{EXPORT_NEW_OUT}/int8_symbolic"
+    meta, export_s, save_s, mb = _export_timed(
+        lambda p: export_lib.export_estimator(
+            est8, p, fn="estimate_2d", params_batch_hint=INT8_SYMBOLIC_HINT),
+        path)
+    check(meta["input"]["shape"][0] == "b"
+          and meta["estimator"]["quantized_params"],
+          "symbolic-batch int8 artifact")
+    prog = export_lib.load(path)
+    live8 = copy.copy(est8)
+    live8.int8_min_batch = 1
+    repeats = scan_first_step_repeats()
+    res = {"scan_first_step_repeats": repeats}
+    launches = {}
+    for b in INT8_SYMBOLIC_BATCHES:
+        frames = images[:b]
+        live, live_l, live_s = _counted(lambda: live8.estimate_2d(frames))
+        out, art_l, art_s = _counted(lambda: prog(frames))
+        same = {k: bool(np.array_equal(out[k], getattr(live, k).cpu()
+                                       .numpy()))
+                for k in ("joints2d", "conf")}
+        want_art = {**int8_launches(est8.cpm, MAIN_CPM, b, False,
+                                    grouped=True, scan_repeats=repeats),
+                    "soft_argmax": 1}
+        want_live = {**int8_launches(est8.cpm, MAIN_CPM, b, False),
+                     "soft_argmax": 1}
+        res[str(b)] = {"bit_equal": same, "live_s": live_s,
+                       "artifact_s": art_s, "launches_live": live_l,
+                       "launches_artifact": art_l,
+                       "launches_artifact_expected": want_art}
+        check(all(same.values()), f"int8 symbolic artifact at batch {b} "
+              f"vs live: {same}")
+        check(art_l == want_art and live_l == want_live,
+              f"int8 symbolic artifact at batch {b} launched {art_l} "
+              f"(expected {want_art}), live {live_l} ({want_live})")
+        launches[b] = art_l
+    emit({"phase": "export_int8_symbolic", "group_images":
+          quantize_lib.GROUP_IMAGES, "params_batch_hint": INT8_SYMBOLIC_HINT,
+          "functional_gather_tiles_checked": tiles, "export_s": export_s,
+          "save_s": save_s, "program_mb": mb, **res})
+    return launches[INT8_SYMBOLIC_BATCHES[-1]]
+
+
+def phase_export_video_symbolic(est: PoseEstimator) -> dict:
+    """``estimate_and_fit_video`` exported with a symbolic T (``est`` an
+    :func:`export_estimator_of` with 4 yaw hypotheses): the smooth mode
+    run at T = 8 and T = 16 against the live call (joints3d within 1 mm,
+    one shared β), the temporal mode (its warm starts a scan over frames)
+    at T = 8; B1 once per call."""
+    size = est.cpm_cfg.input_size
+    res, launches = {}, None
+    for mode, ts in (("smooth", VIDEO_SYMBOLIC_T),
+                     ("temporal", (VIDEO_SYMBOLIC_TEMPORAL_T,))):
+        path = f"{EXPORT_NEW_OUT}/video_{mode}"
+        meta, export_s, save_s, mb = _export_timed(
+            lambda p: export_lib.export_estimator(
+                est, p, fn="estimate_and_fit_video", mode=mode), path)
+        check(meta["input"]["shape"][0] == "b", "symbolic T")
+        prog = export_lib.load(path)
+        res[mode] = {"export_s": export_s, "save_s": save_s,
+                     "program_mb": mb}
+        for t in ts:
+            frames = _frames(t, size, size, seed=65 + t)
+            live, live_l, live_s = _counted(
+                lambda: est.estimate_and_fit_video(frames, mode))
+            out, art_l, art_s = _counted(lambda: prog(frames))
+            gap = _artifact_gap(out, live)
+            shared = float(np.ptp(out["beta"], axis=0).max())
+            res[mode][str(t)] = {"live_s": live_s, "artifact_s": art_s,
+                                 "beta_ptp": shared,
+                                 "launches_live": live_l,
+                                 "launches_artifact": art_l, **gap}
+            check(gap["joints3d_mpjpe_mm"] <= ARTIFACT_MPJPE_MM,
+                  f"video {mode} artifact at T = {t} vs live: {gap}")
+            check(mode != "smooth" or shared < 1e-5,
+                  f"video artifact at T = {t}: β not shared ({shared})")
+            check(art_l == live_l == {**B2_NONE, "soft_argmax": 1},
+                  f"video {mode} artifact at T = {t} launched {art_l}, "
+                  f"live {live_l}")
+            launches = art_l
+    emit({"phase": "export_video_symbolic", "restarts": est.fit_restarts,
+          **res})
+    return launches
+
+
+def phase_export_new_paths() -> dict:
+    """The three exports this slice opened (L-BFGS fits, the int8 CPM with
+    a symbolic batch, the video fits with a symbolic T), in a process of
+    their own beside the hard set: tracing and saving are host work. The
+    init head is trained here as ``phase_fit_extras_main_path`` trains
+    it."""
+    size = MAIN_CPM.input_size
+    est = PoseEstimator.create_synthetic(seed=0, cpm_cfg=MAIN_CPM,
+                                         device=DEVICE)
+    head, _ = init_head_lib.train_init_head(
+        est.smpl_model, steps=HEAD_STEPS, batch=HEAD_BATCH, seed=0)
+    images = _frames(INT8_SYMBOLIC_BATCHES[-1], size, size, seed=66)
+    launches = {
+        "lbfgs": phase_export_lbfgs(est, head,
+                                    images[:EXPORT_LBFGS_BATCH]),
+        "int8_symbolic": phase_export_int8_symbolic(images),
+        "video_symbolic": phase_export_video_symbolic(PoseEstimator(
+            est.cpm, est.smpl_model, est.prior, est.cpm_cfg, EXPORT_FIT,
+            fit_restarts=VIDEO_RESTARTS, device=DEVICE))}
+    shutil.rmtree(EXPORT_NEW_OUT, ignore_errors=True)
+    emit({"phase": "export_new_paths", "launches": launches})
+    return launches
+
+
 def phase_serving_artifact(prog) -> dict:
     """A few requests through ``BatchingServer(ServableProgram(prog))``,
     the main path's loaded artifact behind the server with no estimator:
@@ -4483,13 +4749,14 @@ def main() -> int:
                                                                "go"))
     parallel = phase_in_process(
         f"phase_parallel_main_path({timed_flag!r}, {go_flag!r})")
-    day_one = streams = None
+    day_one = streams = export_new = None
     try:
         wait_for_file(timed_flag, PARALLEL_TIMEOUT_S, parallel)
         emit({"phase": "parallel_timed_phases",
               "seconds": time.perf_counter() - t0})
         day_one = phase_in_process("phase_day_one_main_path()")
         streams = phase_in_process("phase_export_streams()")
+        export_new = phase_in_process("phase_export_new_paths()")
         phase_hard_data_check()
         hard_npz, sc_launches = phase_selfcheck_main_path()
         tb_launches = phase_track_bench_main_path(hard_npz)
@@ -4507,10 +4774,12 @@ def main() -> int:
                              PARALLEL_TIMEOUT_S)["launches"]
         xs_launches = finish_process(streams, "export_streams",
                                      PARALLEL_TIMEOUT_S)["launches"]
+        xn_launches = finish_process(export_new, "export_new_paths",
+                                     PARALLEL_TIMEOUT_S)["launches"]
         d1_launches = finish_process(day_one, "day_one_main_path",
                                      DAY_ONE_TIMEOUT_S)["launches"]
     finally:
-        for proc in (parallel, day_one, streams):
+        for proc in (parallel, day_one, streams, export_new):
             if proc is not None:
                 stop_process(proc)
         shutil.rmtree(flag_dir, ignore_errors=True)
@@ -4567,6 +4836,11 @@ def main() -> int:
         "launches_export_video_multi_stream_path": xs_launches[
             "video_multi_stream"]["soft_argmax"],
         "launches_export_fit_smpl_path": xf_launches["soft_argmax"],
+        "launches_export_lbfgs_path": xn_launches["lbfgs"]["soft_argmax"],
+        "launches_export_int8_symbolic_path": xn_launches["int8_symbolic"][
+            "soft_argmax"],
+        "launches_export_video_symbolic_path": xn_launches[
+            "video_symbolic"]["soft_argmax"],
         "launches_serving_artifact_path": sa_launches["soft_argmax"],
         "launches_selfcheck_export_section": sc_launches["export_section"][
             "soft_argmax"],
@@ -4602,6 +4876,8 @@ def main() -> int:
         "absmax_launches_profile_entry_int8_path": pe8[
             "quantize_act_absmax"],
         "launches_export_int8_path": x8_launches["quantize_act"],
+        "launches_export_int8_symbolic_path": xn_launches["int8_symbolic"][
+            "quantize_act"],
         "launches_selfcheck_path_other_sections": sc_total["quantize_act"]
         - sc8["quantize_act"],
         "launches_sharded_paths": _sum_counts(
@@ -4628,6 +4904,8 @@ def main() -> int:
         "launches_selfcheck_int8_rung": sc8["quantize_im2col"],
         "launches_profile_entry_int8_path": pe8["quantize_im2col"],
         "launches_export_int8_path": x8_launches["quantize_im2col"],
+        "launches_export_int8_symbolic_path": xn_launches["int8_symbolic"][
+            "quantize_im2col"],
         "launches_sharded_paths": _sum_counts(
             [par["sharded_main_path"], par["sharded_export"],
              *par["sharded_eval"].values()])["quantize_im2col"],

@@ -105,6 +105,48 @@ def test_int8_launches_per_chunk():
         (12, 15, 0, 368), (15, 16, 0, 368)]
 
 
+@pytest.mark.parametrize("batch", [5, 1])
+@pytest.mark.parametrize("dynamic", [False, True])
+def test_int8_launches_grouped_match_a_counted_run(counted, monkeypatch,
+                                                   dynamic, batch):
+    """B2 per int8 pass with a symbolic batch (ops/quantize.
+    _int8_conv_grouped, the form an exported program runs): for each k×k
+    conv the tiles of one group for each group of the batch padded to
+    whole groups, computed by int8_launches(grouped=True), equal to the
+    functional gather's calls in a counted run at a batch of 5 (not a
+    multiple of the group of 2) and of 1, with whole-image and row-run
+    tiles; with scan_repeats, one group more per conv."""
+    from tpu_pose_torch.models import cpm as cpm_lib
+    from tpu_pose_torch.ops import cuda_kernels
+    from tpu_pose_torch.ops import quantize as quantize_lib
+    monkeypatch.setattr(quantize_lib, "TILE_BYTES", 10 ** 6)
+    monkeypatch.setattr(quantize_lib, "GROUP_IMAGES", 2)
+    monkeypatch.setattr(quantize_lib, "int8_conv",
+                        quantize_lib._int8_conv_grouped)
+    tile_op = cuda_kernels.quantize_im2col_tile_cuda
+
+    def tile_counted(*args, **kw):
+        counted["quantize_im2col"] += 1
+        return tile_op(*args, **kw)
+
+    monkeypatch.setattr(cuda_kernels, "quantize_im2col_tile_cuda",
+                        tile_counted)
+    cfg, cpm = _small_multi()
+    q = cpm_lib.quantize_params(cpm, None if dynamic else {
+        name: 0.05 for name, *_ in cpm_lib._layer_defs(cfg)})
+    with torch.no_grad():
+        cpm_lib.estimate_2d_from_images(q, torch.zeros(batch, 64, 64, 3),
+                                        cfg)
+    want = chip_smoke.int8_launches(q, cfg, batch, dynamic, grouped=True)
+    assert {k: counted[k] for k in want} == want
+    static = chip_smoke.int8_launches(q, cfg, batch, dynamic)
+    assert want["quantize_im2col"] > static["quantize_im2col"] or batch == 1
+    again = chip_smoke.int8_launches(q, cfg, batch, dynamic, grouped=True,
+                                     scan_repeats=1)
+    n_gathered = sum(1 for layer in q.children() if layer.kernel_size > 1)
+    assert again["quantize_im2col"] >= want["quantize_im2col"] + n_gathered
+
+
 def test_int8_launches_with_refine_scale():
     """With refine_scale a pass runs stage 1 twice (the crop round), so
     the 7 stage-1 convs launch twice and the 33 others once."""
@@ -525,11 +567,12 @@ def test_hard_set_phases_run_with_the_computed_launches(cpu_phases):
 
 def test_main_runs_every_phase():
     """main() calls every phase_* function the script defines, itself or
-    through phase_parallel_main_path, which it runs in a process of its
-    own."""
+    through phase_parallel_main_path or phase_export_new_paths, which it
+    runs in processes of their own."""
     import inspect
-    body = inspect.getsource(chip_smoke.main) + inspect.getsource(
-        chip_smoke.phase_parallel_main_path)
+    body = "".join(inspect.getsource(f) for f in (
+        chip_smoke.main, chip_smoke.phase_parallel_main_path,
+        chip_smoke.phase_export_new_paths))
     phases = [n for n, f in vars(chip_smoke).items()
               if n.startswith("phase_") and inspect.isfunction(f)]
     assert len(phases) > 40

@@ -341,6 +341,32 @@ def test_quantize_im2col_kernel_matches_plain(cuda_device, case, scales):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(IM2COL_SHAPES))
+def test_quantize_im2col_tile_op_matches_in_place(cuda_device, case):
+    """The functional form of the gather (the op
+    tpu_pose_torch::quantize_im2col_tile, which returns a new buffer: the
+    form an exported program's scan bodies call) against the in-place op
+    and the plain version, bit for bit, at every int8-path conv shape;
+    each call is one launch of the same kernel, counted with the in-place
+    op's."""
+    shape, dtype, k = IM2COL_SHAPES[case]
+    g = torch.Generator(device=cuda_device).manual_seed(len(case) + 1)
+    x = (2.0 * torch.randn(shape, generator=g, device=cuda_device)).to(dtype)
+    scale = cuda_kernels.act_scale_cuda(x)
+    h = shape[1]
+    k_pad = -(-k * k * shape[3] // 8) * 8
+    for tile in ((0, shape[0], 0, h), (1, 2, h // 3, h // 3 + 5)):
+        out_k, out_p = _im2col_pair(x, scale, k, tile)
+        before = cuda_kernels.quantize_im2col_cuda.launches
+        got = cuda_kernels.quantize_im2col_tile_cuda(x, scale, k, tile,
+                                                     k_pad)
+        torch.cuda.synchronize()
+        assert cuda_kernels.quantize_im2col_cuda.launches == before + 1
+        assert got.shape == out_k.shape and got.dtype == torch.int8
+        assert torch.equal(got, out_k) and torch.equal(got, out_p), tile
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("case", ["strided_view", "halfway_f32",
                                   "halfway_bf16", "zeros", "int8"])
 def test_quantize_im2col_kernel_special_inputs(cuda_device, case):

@@ -291,3 +291,84 @@ def test_batched_samples_are_independent(assets):
                                    getattr(ab, f)[1].numpy(),
                                    **(END_TOL if f != "energy"
                                       else dict(rtol=1e-3)), err_msg=f)
+
+
+# -- the export form: a scan over the steps, a while_loop linesearch ----------
+
+def _quartic_batch():
+    """Five samples whose linesearches take different numbers of
+    iterations (starting points from 0.3× to 10× apart), one coordinate
+    frozen by the mask."""
+    rng = np.random.RandomState(0)
+    c = _t(np.float32(rng.uniform(0.1, 10.0, (5, 6))))
+    x = _t(np.float32(rng.randn(5, 6)
+                      * np.float32([[1.0], [3.0], [0.3], [10.0], [1.0]])))
+    return x, c, torch.tensor([1.0, 1.0, 0.0, 1.0, 1.0, 1.0])
+
+
+def test_lbfgs_scan_matches_run_lbfgs_step_for_step():
+    """lbfgs.lbfgs_scan (the replayed stage: the memory as (M, B, D)
+    buffers, the linesearch a while_loop with the eager loop's exit) on
+    the stage's traced gradient graph against run_lbfgs: x, value and
+    gradient after 3 steps and the value before each step, bit for bit.
+    Some samples finish their linesearch before others (the eager loop
+    evaluates fewer than batch × iterations samples)."""
+    x, c, mask = _quartic_batch()
+    lbfgs.reset_counts()
+    want_x, want_hist = lbfgs.run_lbfgs(_quartic, x, 3, mask, True, (c,))
+    assert lbfgs.COUNTS["evaluations"] < (x.shape[0]
+                                          * lbfgs.COUNTS["host_reads"])
+    vg = lbfgs.value_and_grad_fn(_quartic, mask)
+
+    def grad_fn(x, c):
+        e, g = vg(x, c)
+        return g, e
+
+    gm, used, consts = torch_fit.FitExport._trace_gradient(
+        grad_fn, (x,), (c,), True)
+    got_x, got_v, got_g, got_hist = lbfgs.lbfgs_scan(
+        lambda x, *inputs: gm(x, *inputs)[::-1], x, 3, True,
+        tuple([c][i] for i in used) + tuple(consts))
+    want_v, want_g = vg(want_x, c)
+    assert torch.equal(got_x, want_x)
+    assert torch.equal(got_v, want_v) and torch.equal(got_g, want_g)
+    assert len(got_hist) == 3
+    for g, w in zip(got_hist, want_hist):
+        assert torch.equal(g, w)
+
+
+class _LbfgsModule(torch.nn.Module):
+    def forward(self, x, c, mask):
+        return torch_fit._run_lbfgs(_quartic, x, 4, mask, True, (c,))
+
+
+def test_lbfgs_stage_exports_and_matches_eager():
+    """A stage through fit._run_lbfgs under FitExport: the export holds
+    one scan with a while_loop inside (not unrolled steps), and the
+    program at the traced batch and at another equals the eager stage bit
+    for bit."""
+    x, c, mask = _quartic_batch()
+    module = _LbfgsModule()
+    loops = torch_fit.FitExport()
+    with loops.recording():
+        want = module(x[:3], c[:3], mask)
+    b = torch.export.Dim("b")
+    with loops.replaying_calls(), torch.no_grad():
+        prog = torch.export.export(module, (x[:3], c[:3], mask),
+                                   dynamic_shapes=({0: b}, {0: b}, None),
+                                   strict=False)
+    loops.finish()
+    loops_at_top = [n for n in prog.graph.nodes if n.op == "call_function"
+                    and ("scan" in str(n.target)
+                         or "while_loop" in str(n.target))]
+    assert [str(n.target).rsplit(".", 1)[-1] for n in loops_at_top] == [
+        "scan"]
+    scan_body = next(m for name, m in prog.graph_module.named_children()
+                     if name.startswith("scan_combine"))
+    assert any("while_loop" in str(n.target) for n in scan_body.graph.nodes)
+    for args, eager in (((x[:3], c[:3], mask), want),
+                        ((x, c, mask), module(x, c, mask))):
+        got = prog.module()(*args)
+        assert torch.equal(got[0], eager[0])
+        for g, w in zip(got[1], eager[1]):
+            assert torch.equal(g, w)

@@ -439,3 +439,40 @@ def test_int8_conv_tiles_and_gemm_rules(monkeypatch):
     got = quant_lib.int8_gemm(torch.ones(3, 8, dtype=torch.int8),
                               torch.ones(8, 8, dtype=torch.int8).t())
     assert got.shape == (3, 8) and bool((got == 8).all())
+
+
+@pytest.mark.parametrize("scales", ["static", "dynamic"])
+def test_int8_conv_grouped_matches_static_tiles(monkeypatch, scales):
+    """The symbolic-batch form of int8_conv (the batch padded to whole
+    groups, a scan over the groups, B2's functional gather) against the
+    static tiles, bit for bit, at a batch (5) that is not a multiple of
+    the group (2): a 5×5 gather with a static or a dynamic scale, a row
+    run split of one image (a small tile budget) and a 1×1 conv of int8
+    values (no gather)."""
+    monkeypatch.setattr(quant_lib, "GROUP_IMAGES", 2)
+    rng = np.random.RandomState(17)
+    x = torch.from_numpy(rng.randn(5, 9, 7, 6).astype(np.float32))
+    a_scale = (torch.tensor(0.02) if scales == "static"
+               else quant_lib.act_scale(x))
+    w = torch.from_numpy(rng.randint(-127, 128, (16, 5 * 5 * 6 + 2))
+                         .astype(np.int8))
+    w[:, 150:] = 0
+    bias = torch.from_numpy(rng.randn(13).astype(np.float32))
+
+    def epilogue(acc, scale, b):
+        return torch.relu_(acc.float().mul_(scale).add_(b))
+
+    args = (epilogue, torch.bfloat16, a_scale, (a_scale * 0.01, bias))
+    want = quant_lib.int8_conv(x, w.t(), 5, 13, *args)
+    got = quant_lib._int8_conv_grouped(x, w.t(), 5, 13, *args)
+    assert torch.equal(got, want)
+    monkeypatch.setattr(quant_lib, "TILE_BYTES", 3 * 7 * (152 + 8 * 16))
+    g, tiles = quant_lib._group_tiles(9, 7 * (152 + 8 * 16))
+    assert g == 1 and len(tiles) == 3 and tiles[0] == (0, 1, 0, 3)
+    assert torch.equal(quant_lib._int8_conv_grouped(x, w.t(), 5, 13, *args),
+                       want)
+    q = torch.from_numpy(rng.randint(-127, 128, (5, 4, 3, 8)).astype(np.int8))
+    w1 = torch.from_numpy(rng.randint(-127, 128, (8, 8)).astype(np.int8))
+    one = (lambda acc: acc.double(), torch.float64)
+    assert torch.equal(quant_lib._int8_conv_grouped(q, w1.t(), 1, 8, *one),
+                       quant_lib.int8_conv(q, w1.t(), 1, 8, *one))

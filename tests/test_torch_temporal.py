@@ -105,35 +105,63 @@ def _compare(jm, got, want):
 # -- Viterbi ------------------------------------------------------------------
 
 VITERBI = ["plain", "nan_energy", "frame_mask", "anchor",
-           "mask_anchor_nan"]
+           "mask_anchor_nan", "ties", "two_frames"]
 
 
+@pytest.mark.parametrize("tracks", [None, 2])
 @pytest.mark.parametrize("case", VITERBI)
-def test_viterbi_select_matches_jax(case):
+def test_viterbi_select_matches_jax(case, tracks):
     """NaN energies count as inf; masked frames add no cost even where a
-    pad's energy is inf; the anchor adds a transition from frame −1."""
-    rng = np.random.RandomState(VITERBI.index(case))
-    t, r = 7, 4
-    energy = rng.rand(t, r).astype(np.float32) * 5
-    glob = rng.randn(t, r, 3).astype(np.float32)
-    kw_j, kw_t = {}, {}
+    pad's energy is inf; the anchor adds a transition from frame −1;
+    exact ties (equal energies and orientations) go to the first index;
+    T = 2 has one transition. With ``tracks`` the port selects over a
+    leading track axis in one call, held against JAX track by track."""
+    rng = np.random.RandomState(VITERBI.index(case)
+                                + (0 if tracks is None else 20))
+    k = tracks or 1
+    t, r = (2 if case == "two_frames" else 7), 4
+    energy = rng.rand(k, t, r).astype(np.float32) * 5
+    glob = rng.randn(k, t, r, 3).astype(np.float32)
+    mask = anchor = None
     if "nan" in case:
-        energy[2, 1] = energy[4, 0] = np.nan
+        energy[0, 2, 1] = energy[-1, 4, 0] = np.nan
     if "mask" in case:
-        mask = np.array([1, 1, 1, 1, 1, 0, 0], np.float32)
-        energy[6] = np.inf
-        kw_j["frame_mask"] = jnp.asarray(mask)
-        kw_t["frame_mask"] = torch.from_numpy(mask)
+        mask = np.float32([[1, 1, 1, 1, 1, 0, 0],
+                           [1, 1, 1, 1, 1, 1, 0]][:k])
+        energy[:, 6] = np.inf
     if "anchor" in case:
-        anchor = rng.randn(3).astype(np.float32)
-        kw_j["anchor_glob"] = jnp.asarray(anchor)
-        kw_t["anchor_glob"] = torch.from_numpy(anchor)
-    want = np.asarray(jax_temporal._viterbi_select(
-        jnp.asarray(energy), jnp.asarray(glob), 0.7, **kw_j))
+        anchor = rng.randn(k, 3).astype(np.float32)
+    if case == "ties":
+        energy[:, :, 1:3] = energy[:, :, 1:2]
+        glob[:, :, 2] = glob[:, :, 1]
+        energy[-1] = 0.0
+        glob[-1] = 0.0
+    want = []
+    for i in range(k):
+        kw = {}
+        if mask is not None:
+            kw["frame_mask"] = jnp.asarray(mask[i])
+        if anchor is not None:
+            kw["anchor_glob"] = jnp.asarray(anchor[i])
+        want.append(np.asarray(jax_temporal._viterbi_select(
+            jnp.asarray(energy[i]), jnp.asarray(glob[i]), 0.7, **kw)))
+    want = np.stack(want)
+    kw = {}
+    if mask is not None:
+        kw["frame_mask"] = torch.from_numpy(mask)
+    if anchor is not None:
+        kw["anchor_glob"] = torch.from_numpy(anchor)
+    if tracks is None:
+        energy, glob, want = energy[0], glob[0], want[0]
+        kw = {key: v[0] for key, v in kw.items()}
     got = temporal._viterbi_select(torch.from_numpy(energy),
-                                   torch.from_numpy(glob), 0.7, **kw_t)
-    assert got.dtype == torch.int32
+                                   torch.from_numpy(glob), 0.7, **kw)
+    assert got.dtype == torch.int32 and got.shape == want.shape
     np.testing.assert_array_equal(got.numpy(), want)
+    if case == "ties":
+        assert (got[..., -1, :] == 0).all() if tracks else \
+            (got == 0).all()
+        assert not (got == 2).any()
 
 
 def test_viterbi_select_prefers_a_consistent_path():

@@ -26,18 +26,21 @@ run by :class:`ArtifactVideoSession`.
 
 Batch dimension: ``batch=None`` (default) exports with a symbolic batch
 (``torch.export.Dim("b")``): one artifact serves any batch, including the
-serving layer's bucket ladder. A static int pins it (required with
-``cpm_microbatch`` chunking and with the int8 CPM, whose chunk and tile
-loops run over the concrete batch).
+serving layer's bucket ladder, and a video artifact any T ≥ 2. A static
+int pins it (required with ``cpm_microbatch`` chunking, whose chunk loop
+runs over the concrete batch). With a symbolic batch the int8 CPM tiles
+its convs by fixed groups of images (``ops/quantize._int8_conv_grouped``).
 
-How the fit exports: the Adam loops become ``scan`` loops, not unrolled
-steps (``fitting/fit.AdamExport``). The traced function runs twice: once
-eagerly on example inputs, recording each loop's gradient graph, then
-inside ``torch.export``, where each loop replays its graph as the body of
-a scan. The hand-written kernels are ``torch.library`` custom ops
-(``ops/cuda_kernels.py``), so the program calls them as the live path
-does. L-BFGS stages read the device once per linesearch iteration and do
-not export (ROADMAP 15b).
+How the fit exports: its loops become loops of the program, not
+unrolled steps (``fitting/fit.FitExport``): an Adam stage is a ``scan``
+over its steps, an L-BFGS stage a ``scan`` whose linesearch is a
+``while_loop`` with the eager loop's exit, and the video fits' loops over
+frames (the warm starts, the Viterbi selection) are scans. The traced
+function runs twice: once eagerly on example inputs, recording each
+stage's gradient graph, then inside ``torch.export``, where each stage
+replays its graph in the body of its loop. The hand-written kernels are
+``torch.library`` custom ops (``ops/cuda_kernels.py``), so the program
+calls them as the live path does.
 
 Device: a program is traced on one device (``platforms`` is the
 estimator's device type, ``"cuda"`` or ``"cpu"``) and runs there; the JAX
@@ -56,6 +59,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import gc
 import hashlib
 import io
 import json
@@ -154,37 +158,44 @@ class _Program(torch.nn.Module):
     """The module ``torch.export`` traces: ``fn`` with the CPM registered
     as a submodule, so its weights are the program's parameters."""
 
-    def __init__(self, fn, cpm, adam):
+    def __init__(self, fn, cpm, loops):
         super().__init__()
         self.cpm = cpm
         self._fn = fn
-        self._adam = adam
+        self._loops = loops
 
     def forward(self, *args):
-        self._adam.restart()
-        return self._fn(*args)
+        from tpu_pose_torch.fitting import fit as fit_lib
+        self._loops.restart()
+        # The loops' bodies turn the cache back on (FitExport).
+        with fit_lib.fake_tensor_cache(args, False):
+            return self._fn(*args)
 
 
-def _trace(fn, cpm, args: tuple, dynamic_shapes=None):
+def _trace(fn, cpm, args: tuple, dynamic_shapes=None,
+           size_oblivious: bool = False):
     """Export ``fn(*args)``: an eager run that records the fit loops'
-    gradient graphs, then the export trace that replays them as scans
-    (``fitting/fit.AdamExport``). Returns (the ExportedProgram, the eager
-    run's outputs, the precision flags the program must run under)."""
+    gradient graphs, then the export trace that replays them as loops
+    (``fitting/fit.FitExport``). Returns (the ExportedProgram, the eager
+    run's outputs, the precision flags the program must run under).
+    ``size_oblivious``: trace under :func:`_size_oblivious`."""
     from tpu_pose_torch.fitting import fit as fit_lib
     from tpu_pose_torch.utils import device as device_lib
     # A static export's gradient graphs are traced on concrete shapes:
     # several times faster than with a symbolic batch.
-    adam = fit_lib.AdamExport(symbolic=dynamic_shapes is not None)
-    module = _Program(fn, cpm, adam)
+    loops = fit_lib.FitExport(symbolic=dynamic_shapes is not None)
+    module = _Program(fn, cpm, loops)
     exact = (device_lib.full_f32_matmul.entries,
              device_lib.full_f32_conv.entries)
-    with adam.recording():
+    with loops.recording(), _gc_paused():
         eager = module(*args)
-    with adam.replaying_calls(), torch.no_grad():
+    with (loops.replaying_calls(), torch.no_grad(), _no_stack_traces(),
+          _gc_paused(),
+          _size_oblivious() if size_oblivious else contextlib.nullcontext()):
         program = torch.export.export(module, args,
                                       dynamic_shapes=dynamic_shapes,
                                       strict=False)
-    adam.finish()
+    loops.finish()
     # A flag that a precision scope turned off anywhere stays off for the
     # whole program: the graph cannot switch it mid-call.
     precision = {
@@ -197,17 +208,96 @@ def _trace(fn, cpm, args: tuple, dynamic_shapes=None):
     return program, eager, precision
 
 
+@contextlib.contextmanager
+def _gc_paused():
+    """Pause the cyclic garbage collector. Tracing, saving or loading a
+    program makes millions of small objects, and each of the collector's
+    full passes walks the whole heap of the process, so its cost grows
+    with everything else the process holds. What became garbage
+    meanwhile sits in the youngest generation, collected once at the
+    end."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
+            gc.collect(0)
+
+
+@contextlib.contextmanager
+def _no_stack_traces():
+    """Trace without a stack trace per node. The trace otherwise walks
+    the Python stack at every node it adds, for metadata that only a
+    reader of the graph uses: seconds of the main artifact's export. The
+    tracers read a class attribute, which is pinned to False for the
+    duration."""
+    from torch.fx import proxy
+    base = proxy.TracerBase
+    prev = base.__dict__.get("record_stack_traces", False)
+    base.record_stack_traces = property(lambda self: False,
+                                        lambda self, value: None)
+    try:
+        yield
+    finally:
+        base.record_stack_traces = prev
+
+
+def _size_oblivious():
+    """Symbolic sizes taken as ≥ 2 without a guard where an op asks
+    whether a size is 0 or 1 (``backed_size_oblivious``): a video's
+    T − 1 frame pairs, or the int8 CPM's number of image groups, would
+    otherwise be guarded ≠ 1 (ruling out T = 2, or batches past one
+    group) or specialized to the example's 1. A program's ops still run
+    on the real sizes."""
+    from torch.fx.experimental import _config
+    return _config.patch(backed_size_oblivious=True)
+
+
 def _example_frames(est, b: int, h: int, w: int, seed: int = 0):
     rng = np.random.RandomState(seed)
     return torch.from_numpy(rng.randint(0, 256, (b, h, w, 3)).astype(
         np.uint8)).to(est.device)
 
 
+def _unfold_sym_sums(gm) -> None:
+    """Rewrite each ``torch.sym_sum`` node of ``gm`` and of its subgraphs
+    (a symbolic size's sum, which a replayed gradient graph can produce)
+    as a chain of ``+``: the program serializer knows no ``sym_sum``."""
+    import operator
+    changed = False
+    for node in list(gm.graph.nodes):
+        if node.op == "get_attr" and isinstance(
+                getattr(gm, node.target, None), torch.fx.GraphModule):
+            _unfold_sym_sums(getattr(gm, node.target))
+        if node.op != "call_function" or node.target is not torch.sym_sum:
+            continue
+        terms = list(node.args[0])
+        acc, acc_val = terms[0], _meta_val(terms[0])
+        with gm.graph.inserting_before(node):
+            for term in terms[1:]:
+                acc_val = acc_val + _meta_val(term)
+                acc = gm.graph.call_function(operator.add, (acc, term))
+                acc.meta["val"] = acc_val
+        node.replace_all_uses_with(acc)
+        gm.graph.erase_node(node)
+        changed = True
+    if changed:
+        gm.recompile()
+
+
+def _meta_val(arg):
+    return arg.meta["val"] if isinstance(arg, torch.fx.Node) else arg
+
+
 def _save(program, path: str, name: str) -> str:
     """Save ``program`` as ``path/name``; return its sha256."""
+    _unfold_sym_sums(program.graph_module)
     os.makedirs(path, exist_ok=True)
     target = os.path.join(path, name)
-    torch.export.save(program, target)
+    with _gc_paused():
+        torch.export.save(program, target)
     with open(target, "rb") as f:
         return hashlib.sha256(f.read()).hexdigest()
 
@@ -232,8 +322,8 @@ def export_estimator(est, path: str, fn: str = "estimate_and_fit",
         honored and recorded in the artifact metadata.
       fn: one of :data:`FUNCTIONS`.
       batch: static batch size, or None for a symbolic batch dimension
-        (one artifact, any batch). Incompatible with ``cpm_microbatch``
-        and with the int8 CPM.
+        (one artifact, any batch; for ``estimate_and_fit_video``, any
+        T ≥ 2). Incompatible with ``cpm_microbatch``.
       input_shape: (H, W) of the input frames; defaults to the network
         input size. Frames are uint8 (B, H, W, 3).
       platforms: the estimator's device type (the default); any other
@@ -249,7 +339,7 @@ def export_estimator(est, path: str, fn: str = "estimate_and_fit",
         ``n_devices`` and a world of at least ``n_devices`` ranks. Every
         rank calls this; rank 0 traces and writes, the others wait for it
         and read its ``meta.json``. The video fits couple frames and do
-        not shard (ROADMAP A.21b).
+        not shard (ROADMAP A.21b): with ``n_devices`` they raise.
       **fn_kwargs: static knobs of the multi-person path (``max_people``,
         ``min_person_score``, ...) and the video path's ``mode``.
 
@@ -307,15 +397,6 @@ def _export_estimator(est, path: str, fn: str = "estimate_and_fit",
             raise ValueError(
                 "the video fits couple neighbouring frames and do not shard "
                 "over ranks (ROADMAP A.21b); export with n_devices=None")
-    if est.fit_cfg.optimizer == "lbfgs" and fn != "estimate_2d":
-        raise ValueError(
-            "FitConfig(optimizer='lbfgs') does not export: its linesearch "
-            "reads the device once per iteration (ROADMAP 15b); export an "
-            "Adam FitConfig")
-    if batch is None and fn == "estimate_and_fit_video":
-        raise ValueError(
-            "the video fits loop over the frames in Python (Viterbi, warm "
-            "starts) and need a static T — pass batch=T")
     if batch is None and est.cpm_microbatch:
         raise ValueError(
             "symbolic batch (batch=None) is incompatible with "
@@ -325,16 +406,14 @@ def _export_estimator(est, path: str, fn: str = "estimate_and_fit",
     params = est._params_for_batch(
         batch if batch is not None else params_batch_hint)
     quantized = _params_quantized(params)
-    if batch is None and quantized and fn != "fit_smpl":
-        raise ValueError(
-            "the int8 CPM needs a static batch (its im2col tiles are cut "
-            "from the concrete batch) — pass batch=N, or a "
-            "params_batch_hint below int8_min_batch")
     est2 = _estimator_for(est, decode_impl, params)
 
     h, w = input_shape or (est.cpm_cfg.input_size, est.cpm_cfg.input_size)
     b_meta = "b" if batch is None else int(batch)
-    b_ex = 2 if batch is None else int(batch) // (n_devices or 1)
+    # The example a symbolic batch is traced on. A video's T − 1 frame
+    # pairs must not be 1: a size-1 dimension specializes.
+    b_ex = ((3 if fn == "estimate_and_fit_video" else 2) if batch is None
+            else int(batch) // (n_devices or 1))
     if fn == "fit_smpl":
         p = est.cpm_cfg.num_joints
         rng = np.random.RandomState(0)
@@ -354,11 +433,15 @@ def _export_estimator(est, path: str, fn: str = "estimate_and_fit",
                         "shape": [b_meta, int(h), int(w), 3],
                         "dtype": "uint8"}]
     dynamic = None
+    oblivious = batch is None and (fn == "estimate_and_fit_video"
+                                   or quantized)
     if batch is None:
-        dim = torch.export.Dim("b")
+        # Size-oblivious tracing does not take a batch of 0 as excluded.
+        dim = torch.export.Dim("b", min=1 if oblivious else 0)
         dynamic = (tuple({0: dim} for _ in args),)   # forward(*args)
-    program, _, precision = _trace(_build_fn(est2, fn, **fn_kwargs), params,
-                                   args, dynamic)
+    program, _, precision = _trace(
+        _build_fn(est2, fn, **fn_kwargs), params, args, dynamic,
+        size_oblivious=oblivious)
 
     meta = {
         "format_version": FORMAT_VERSION,
@@ -519,6 +602,11 @@ class LoadedProgram:
         if len({a.shape[0] for a in out}) > 1:
             raise ValueError(
                 f"inconsistent batch sizes: {[a.shape[0] for a in out]}")
+        if self.fn == "estimate_and_fit_video" and out[0].shape[0] < 2:
+            raise ValueError(
+                f"a video artifact fits T >= 2 frames, got "
+                f"{out[0].shape[0]}: fit a single frame with an "
+                f"estimate_and_fit artifact")
         return tuple(out)
 
     def call_device(self, *args) -> dict:
@@ -590,10 +678,6 @@ def _export_stream(est, path: str, chunk: int, platforms, fn_name: str,
     pad_mask, carry)`` returns the window's result dict plus its carry
     keys, with ``carry`` None for the first window."""
     platforms = _platforms(est, platforms)
-    if est.fit_cfg.optimizer == "lbfgs":
-        raise ValueError(
-            "FitConfig(optimizer='lbfgs') does not export: its linesearch "
-            "reads the device once per iteration (ROADMAP 15b)")
     decode_impl = _resolve_decode_impl(est.cpm_cfg)
     params = est._params_for_batch(chunk)
     est2 = _estimator_for(est, decode_impl, params)
@@ -1004,7 +1088,7 @@ def _cached_schema_type_hints():
 
 
 def _load_program(blob: bytes):
-    with _cached_schema_type_hints():
+    with _cached_schema_type_hints(), _gc_paused():
         return torch.export.load(io.BytesIO(blob))
 
 

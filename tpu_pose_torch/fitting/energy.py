@@ -62,12 +62,17 @@ def fit_energy(params: Params, model: SMPLData,
                conf: torch.Tensor,           # (B, P)
                stage: StageConfig, cfg: FitConfig,
                prior: Any = None,
-               capsule_spec: Any = None) -> torch.Tensor:
+               capsule_spec: Any = None,
+               weights: Any = None) -> torch.Tensor:
     """Total energy per sample, (B,). With ``cfg.normalize_obs`` the
     observations arrive in [-1, 1] and ``gmof_sigma`` and the prior
     weights are rescaled into that frame (``scale``). ``capsule_spec``
     (``interpenetration.CapsuleSpec``) enables the interpenetration term
-    of stages with a positive weight."""
+    of stages with a positive weight. ``weights``: the terms' weights as
+    a (4,) tensor (pose prior, angle prior, shape prior,
+    interpenetration) in place of the stage's, which still decide which
+    terms are on (an export's loop over several stages,
+    ``fit.FitExport``); the products are the same as with the floats."""
     theta, beta, cam = params["theta"], params["beta"], params["cam"]
     precision = (smpl_lib.EXACT_PRECISION
                  if cfg.smpl_precision == "highest" else None)
@@ -81,16 +86,18 @@ def fit_energy(params: Params, model: SMPLData,
     sigma = cfg.gmof_sigma * scale
     e = reprojection_energy(j2d, joints2d_obs, conf, sigma)
 
+    w_pose, w_angle, w_shape, w_interp = (
+        (stage.w_pose_prior, stage.w_angle_prior, stage.w_shape_prior,
+         stage.w_interpenetration) if weights is None
+        else weights.unbind(0))
     if prior is not None and stage.w_pose_prior > 0.0:
-        e = e + stage.w_pose_prior * prior.neg_log_prob(theta[..., 3:]) \
-            * scale ** 2
+        e = e + w_pose * prior.neg_log_prob(theta[..., 3:]) * scale ** 2
     if stage.w_angle_prior > 0.0:
-        e = e + stage.w_angle_prior * priors_lib.angle_prior(theta) \
-            * scale ** 2
+        e = e + w_angle * priors_lib.angle_prior(theta) * scale ** 2
     if stage.w_shape_prior > 0.0:
-        e = e + stage.w_shape_prior * (beta * beta).sum(-1) * scale ** 2
+        e = e + w_shape * (beta * beta).sum(-1) * scale ** 2
     if capsule_spec is not None and stage.w_interpenetration > 0.0:
         # Capsule overlap hinge² on the 24 posed joints, in m².
-        e = e + stage.w_interpenetration * interp_lib.interpenetration_penalty(
+        e = e + w_interp * interp_lib.interpenetration_penalty(
             joints, capsule_spec) * scale ** 2
     return e

@@ -14,17 +14,23 @@
   chunks, each anchored to the previous chunk's last solution.
 
 The JAX package's ``lax.scan`` loops are Python loops over device
-tensors here; nothing reads a device value on the host.
+tensors here; nothing reads a device value on the host. The Viterbi
+selection's loops are ``scan``s, and inside an export
+(``fit.exporting()``) the warm starts are too
+(:func:`_warm_starts_scan`, the same steps), so an artifact runs any
+number of frames.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Optional
 
 import torch
 
+from tpu_pose_torch.fitting import fit as fit_lib
 from tpu_pose_torch.fitting.energy import fit_energy
 from tpu_pose_torch.fitting.fit import (FitResult, _normalize_obs, _run_adam,
                                         capsule_spec_for, fit_smpl_batch,
@@ -62,15 +68,55 @@ def fit_video(model: SMPLData, joints2d_seq: torch.Tensor,
         first = fit_smpl_single(model, joints2d_seq[0], conf_seq[0], cfg,
                                 prior)
     warm_cfg = warmstart_schedule(cfg, warm_iters)
-    seq = [_params(first)]
-    for t in range(1, joints2d_seq.shape[0]):
-        seq.append(_params(fit_smpl_single(model, joints2d_seq[t],
-                                           conf_seq[t], warm_cfg, prior,
-                                           init=seq[-1])))
-    init = {k: torch.stack([p[k] for p in seq]) for k in seq[0]}
+    n = joints2d_seq.shape[0]
+    if fit_lib.exporting() and not (isinstance(n, int) and n == 1):
+        init = _warm_starts_scan(model, joints2d_seq, conf_seq, warm_cfg,
+                                 prior, _params(first))
+    else:
+        seq = [_params(first)]
+        for t in range(1, n):
+            # An export's scan form replays the first frame's graph for
+            # every frame: record that one only.
+            with (contextlib.nullcontext() if t == 1
+                  else fit_lib.not_recording()):
+                seq.append(_params(fit_smpl_single(
+                    model, joints2d_seq[t], conf_seq[t], warm_cfg, prior,
+                    init=seq[-1])))
+        init = {k: torch.stack([p[k] for p in seq]) for k in seq[0]}
     refine_cfg = warmstart_schedule(cfg, cfg.stages[-1].iters)
     return fit_smpl_batch(model, joints2d_seq, conf_seq, refine_cfg, prior,
                           init)
+
+
+def _warm_starts_scan(model: SMPLData, joints2d_seq: torch.Tensor,
+                      conf_seq: torch.Tensor, warm_cfg: FitConfig,
+                      prior: Any, first: dict) -> dict:
+    """:func:`fit_video`'s warm starts as one ``scan`` over frames 1..T−1
+    (for an export: T may be symbolic): each step is frame t's
+    ``warm_cfg`` fit seeded from frame t−1's solution, the eager loop's
+    call (its stages; the final energy it also computes is not used).
+    Returns the (T, ...) inits, frame 0's ``first``."""
+    static = (model, prior, capsule_spec_for(model, warm_cfg.stages))
+    leaves = fit_lib._flatten(static)
+    keys = ("theta", "beta", "cam")
+
+    def body(theta, beta, cam, joints2d, conf, *leaves):
+        model, prior, capsule_spec = fit_lib._unflatten(static, iter(leaves))
+        x = torch.cat([theta, beta, cam])[None].to(torch.float32)
+        x, _ = fit_lib.fit_stages(model, _normalize_obs(joints2d[None],
+                                                        warm_cfg),
+                                  conf[None], x, warm_cfg, prior,
+                                  capsule_spec)
+        out = tuple(v[0].clone()
+                    for v in fit_lib._split(x, warm_cfg).values())
+        return out + tuple(t.clone() for t in out)
+
+    out = fit_lib.scan_replaying(body, [fit_lib.dense(first[k])
+                                        for k in keys],
+                                 [joints2d_seq[1:], conf_seq[1:]],
+                                 tuple(t.view_as(t) for t in leaves))
+    return {k: torch.cat([first[k][None], seq])
+            for k, seq in zip(keys, out[3:])}
 
 
 def fit_video_independent(model: SMPLData, joints2d_seq: torch.Tensor,
@@ -94,30 +140,55 @@ def _viterbi_select(energy: torch.Tensor, glob: torch.Tensor,
     (``where``, not a product: a diverged pad hypothesis has e = inf, and
     inf·0 = NaN). ``anchor_glob`` (..., 3) adds a transition from a
     virtual frame −1. Ties go to the first index, as ``jnp.argmin``.
-    Returns (..., T) int32 selections, computed on the device."""
+    Returns (..., T) int32 selections, computed on the device.
+
+    Both passes are ``scan``s, so an export runs any T. The forward pass
+    runs over all T frames, carrying the path costs and the previous
+    frame's orientations (and mask), and leaves frame 0's costs as they
+    are; the backtrack runs over the T back-pointers in reverse, emitting
+    each frame's selection before it steps back. No tensor has T − 1
+    rows: a symbolic T − 1 would be guarded to be ≠ 1, which rules out
+    T = 2."""
+    from torch._higher_order_ops.scan import scan_op
     e = torch.where(torch.isnan(energy), math.inf, energy)
-    n = e.shape[-2]
     if frame_mask is not None:
         e = torch.where(frame_mask[..., None] > 0, e, 0.0)
-        step_w = weight * frame_mask[..., 1:] * frame_mask[..., :-1]
-    else:
-        step_w = torch.full(e.shape[:-2] + (n - 1,), weight, device=e.device)
     cost = e[..., 0, :]
     if anchor_glob is not None:
         cost = cost + weight * ((glob[..., 0, :, :]
                                  - anchor_glob[..., None, :]) ** 2).sum(-1)
-    backs = []
-    for t in range(1, n):
-        trans = ((glob[..., t, None, :, :] - glob[..., t - 1, :, None, :])
-                 ** 2).sum(-1)                           # (..., R_prev, R)
-        tot = (cost[..., :, None] + step_w[..., t - 1, None, None] * trans
-               + e[..., t, None, :])
-        backs.append(tot.argmin(dim=-2))
-        cost = tot.amin(dim=-2)
-    path = [cost.argmin(dim=-1, keepdim=True)]
-    for bp in reversed(backs):
-        path.append(bp.gather(-1, path[-1]))
-    return torch.cat(path[::-1], dim=-1).to(torch.int32)
+    n = e.shape[-2]
+    first = torch.arange(n, device=e.device) == 0
+
+    def forward(cost, g_prev, *rest):
+        if frame_mask is None:
+            g_t, e_t, first = rest
+            w = weight
+            carry = ()
+        else:
+            m_prev, g_t, e_t, first, m_t = rest
+            w = (weight * m_t * m_prev)[..., None, None]
+            carry = (m_t.clone(),)
+        trans = ((g_t[..., None, :, :] - g_prev[..., :, None, :]) ** 2
+                 ).sum(-1)                               # (..., R_prev, R)
+        tot = cost[..., :, None] + w * trans + e_t[..., None, :]
+        cost = torch.where(first, cost, tot.amin(dim=-2))
+        return (cost, g_t.clone()) + carry + (tot.argmin(dim=-2),)
+
+    init = [fit_lib.dense(cost), fit_lib.dense(glob[..., 0, :, :])]
+    xs = [glob.movedim(-3, 0), e.movedim(-2, 0), first]
+    if frame_mask is not None:
+        init.append(fit_lib.dense(frame_mask[..., 0]))
+        xs.append(frame_mask.movedim(-1, 0))
+    cost, *_, backs = scan_op(forward, init, xs, ())
+
+    def backward(idx, bp):
+        return bp.gather(-1, idx), idx.clone()
+
+    # Frame 0's back-pointers are never read: its step leaves the carry.
+    _, path = scan_op(backward, [cost.argmin(dim=-1, keepdim=True)],
+                      [backs.flip(0)], ())
+    return path.flip(0)[..., 0].movedim(0, -1).to(torch.int32)
 
 
 def fit_video_smooth(model: SMPLData, joints2d_seq: torch.Tensor,
@@ -177,10 +248,11 @@ def fit_video_smooth_tracks(model: SMPLData, joints2d: torch.Tensor,
     JAX package vmaps it over a multi-person video's tracks): joints2d
     (K, T, P, 2), conf (K, T, P), ``anchor`` values and ``frame_mask``
     with a leading K axis. One multistart batch of K·T·R fits, the Viterbi
-    selection batched over K, and one Adam loop on one flat vector of all
-    K sequences' parameters: the energies of the sequences are independent
-    and Adam is elementwise, so the gradient of their sum gives each
-    sequence its own updates. Results are (K, T, ...). The joint refine
+    selection batched over K, and one Adam loop on all K sequences' θ,
+    β and cam (three tensors, updated as their concatenation would be):
+    the energies of the sequences are independent and Adam is
+    elementwise, so the gradient of their sum gives each sequence its
+    own updates. Results are (K, T, ...). The joint refine
     is Adam whatever ``cfg.optimizer`` says, and takes the last stage's
     interpenetration weight, as in the JAX package."""
     select_weight = (cfg.video_select_weight if select_weight is None
@@ -221,38 +293,39 @@ def fit_video_smooth_tracks(model: SMPLData, joints2d: torch.Tensor,
     scale = (2.0 / cfg.img_size) if cfg.normalize_obs else 1.0
     s2 = scale * scale
     capsule_spec = capsule_spec_for(model, (stage,))
-    n_theta, n_beta = base.theta.numel(), beta0.numel()
 
-    def split(x):
-        theta = x[:n_theta].reshape(kt, n, -1)
-        beta = x[n_theta:n_theta + n_beta].reshape(beta0.shape)
-        cam = x[n_theta + n_beta:].reshape(kt, n, -1)
-        if shared_beta:
-            beta = beta[:, None].expand(kt, n, -1)
-        return {"theta": theta, "beta": beta, "cam": cam}
+    def split(theta, beta, cam):
+        # θ and cam are (K·T, ...) rows, as are the observations, so an
+        # export's T is their symbolic dim 0 (and is read from them, not
+        # from this call's T); β is (K, 10) when shared.
+        theta = theta.reshape(kt, -1, theta.shape[-1])
+        beta = (beta[:, None].expand(-1, theta.shape[1], -1) if shared_beta
+                else beta.reshape(kt, -1, beta.shape[-1]))
+        return {"theta": theta, "beta": beta,
+                "cam": cam.reshape(kt, -1, cam.shape[-1])}
 
     def frame_energies(p, obs, conf, frame_mask, model, prior,
                        capsule_spec):
-        e = fit_energy({k: v.reshape(kt * n, -1) for k, v in p.items()},
+        e = fit_energy({k: v.reshape(-1, v.shape[-1]) for k, v in p.items()},
                        model, obs, conf, stage, cfg, prior,
-                       capsule_spec).reshape(kt, n)
+                       capsule_spec).reshape(kt, -1)
         # where(), not a product: a NaN/inf pad energy times 0 is NaN.
         return e if frame_mask is None else torch.where(frame_mask > 0, e,
                                                         0.0)
 
-    step_mask = (torch.ones(kt, n - 1, device=obs.device)
-                 if frame_mask is None
-                 else frame_mask[:, 1:] * frame_mask[:, :-1])
-
-    def total_energy(x, obs, conf, frame_mask, model, prior, capsule_spec,
-                     step_mask, anchor):
-        p = split(x)
+    def total_energy(theta, beta, cam, obs, conf, frame_mask, model, prior,
+                     capsule_spec, anchor):
+        p = split(theta, beta, cam)
         dth = p["theta"][:, 1:] - p["theta"][:, :-1]
         dca = p["cam"][:, 1:] - p["cam"][:, :-1]
+        sq_th, sq_ca = (dth * dth).sum(-1), (dca * dca).sum(-1)
+        if frame_mask is not None:
+            step_mask = frame_mask[:, 1:] * frame_mask[:, :-1]
+            sq_th, sq_ca = step_mask * sq_th, step_mask * sq_ca
         e = (frame_energies(p, obs, conf, frame_mask, model, prior,
                             capsule_spec).sum()
-             + smooth_theta * s2 * (step_mask * (dth * dth).sum(-1)).sum()
-             + smooth_cam * s2 * (step_mask * (dca * dca).sum(-1)).sum())
+             + smooth_theta * s2 * sq_th.sum()
+             + smooth_cam * s2 * sq_ca.sum())
         if anchor is not None:
             dth0 = p["theta"][:, 0] - anchor["theta"]
             dca0 = p["cam"][:, 0] - anchor["cam"]
@@ -260,18 +333,19 @@ def fit_video_smooth_tracks(model: SMPLData, joints2d: torch.Tensor,
                  + smooth_cam * s2 * (dca0 * dca0).sum())
         return e
 
-    x = torch.cat([base.theta.reshape(-1), beta0.reshape(-1),
-                   base.cam.reshape(-1)]).to(torch.float32)
+    x = (base.theta.reshape(kt * n, -1).to(torch.float32),
+         (beta0 if shared_beta else beta0.reshape(kt * n, -1)).to(
+             torch.float32),
+         base.cam.reshape(kt * n, -1).to(torch.float32))
     # Every tensor the energy reads goes in args (fit._run_adam).
-    args = (obs, flat_c, frame_mask, model, prior, capsule_spec, step_mask,
-            anchor)
+    args = (obs, flat_c, frame_mask, model, prior, capsule_spec, anchor)
     x, _ = _run_adam(total_energy, x, iters, lr, args=args)
-    p = split(x)
+    p = split(*x)
     with no_grad():
         energy = frame_energies(p, *args[:6])
     return FitResult(theta=p["theta"], beta=p["beta"].contiguous(),
                      cam=p["cam"], energy=energy,
-                     energy_history=torch.zeros(kt, 0, device=x.device))
+                     energy_history=torch.zeros(kt, 0, device=obs.device))
 
 
 def fit_video_stream(model: SMPLData, joints2d_seq: torch.Tensor,

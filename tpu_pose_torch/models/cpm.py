@@ -336,13 +336,13 @@ def _conv_q(x, layer: QuantizedConv, relu: bool, act_dtype):
         a_scale = tile_scale = cuda_kernels.act_scale_cuda(x, layer.a_scale)
     scale = a_scale * layer.w_scale
 
-    def epilogue(acc):
-        y = acc.float().mul_(scale).add_(layer.b)
+    def epilogue(acc, scale, b):
+        y = acc.float().mul_(scale).add_(b)
         return torch.relu_(y) if relu else y
 
     y = quant_lib.int8_conv(x, layer.w_int8.t(), layer.kernel_size,
                             layer.out_channels, epilogue, act_dtype,
-                            tile_scale)
+                            tile_scale, (scale, layer.b))
     return y.permute(0, 3, 1, 2)
 
 

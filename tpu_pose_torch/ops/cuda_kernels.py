@@ -10,8 +10,9 @@ imported when this module is imported: the CPU tests import it on
 machines with no ``nvcc``.
 
 Each kernel is also a ``torch.library`` custom op (``tpu_pose_torch::
-soft_argmax``, ``::act_scale``, ``::quantize_act``, ``::quantize_im2col``)
-with a fake implementation that gives only shapes and dtypes, so
+soft_argmax``, ``::act_scale``, ``::quantize_act``, ``::quantize_im2col``
+and its functional form ``::quantize_im2col_tile``) with a fake
+implementation that gives only shapes and dtypes, so
 ``torch.export`` records one node per call and an exported program
 launches the same kernels (``export.py``). Every wrapper calls its op,
 and the op owns the device route: for a CPU tensor it runs the plain
@@ -405,3 +406,50 @@ def quantize_im2col_cuda(x: torch.Tensor, scale, k: int, tile,
 
 
 quantize_im2col_cuda.launches = 0
+
+
+def _im2col_tile_launch(x: torch.Tensor, scale, k: int, tile: list,
+                        k_pad: int) -> torch.Tensor:
+    """The functional form's CUDA kernel: a new buffer filled by
+    :func:`_im2col_launch` (counted in ``quantize_im2col_cuda.launches``
+    too)."""
+    b0, b1, h0, h1 = tile
+    out = torch.empty(((b1 - b0) * (h1 - h0) * x.shape[2], k_pad),
+                      dtype=torch.int8, device=x.device)
+    _im2col_launch(x, scale, k, tile, out)
+    return out
+
+
+@torch.library.custom_op("tpu_pose_torch::quantize_im2col_tile",
+                         mutates_args=())
+def _im2col_tile_op(x: torch.Tensor, scale: Optional[torch.Tensor], k: int,
+                    tile: list[int], k_pad: int) -> torch.Tensor:
+    b0, b1, h0, h1 = tile
+    out = torch.empty(((b1 - b0) * (h1 - h0) * x.shape[2], k_pad),
+                      dtype=torch.int8)
+    return quantize_lib.quantize_im2col(x, scale, k, tuple(tile), out)
+
+
+_im2col_tile_op.register_kernel("cuda")(_im2col_tile_launch)
+
+
+@_im2col_tile_op.register_fake
+def _(x, scale, k, tile, k_pad):
+    b0, b1, h0, h1 = tile
+    return x.new_empty(((b1 - b0) * (h1 - h0) * x.shape[2], k_pad),
+                       dtype=torch.int8)
+
+
+def quantize_im2col_tile_cuda(x: torch.Tensor, scale, k: int, tile,
+                              k_pad: int) -> torch.Tensor:
+    """:func:`quantize_im2col_cuda` returning a new (m, ``k_pad``) int8
+    buffer instead of filling the caller's, through the op
+    ``tpu_pose_torch::quantize_im2col_tile``, which mutates nothing: the
+    form a loop body of an exported program can call (a ``scan`` body
+    writes into no buffer of its caller; ``ops/quantize.
+    _int8_conv_grouped``). The same kernel (``csrc/quantize_act.cu``'s
+    gather, counted in ``quantize_im2col_cuda.launches``) on a CUDA
+    tensor, the same plain version on a CPU tensor, the same bits."""
+    _device("quantize_im2col_tile_cuda", x)
+    return _im2col_tile_op(x, scale, int(k), [int(t) for t in tile],
+                           int(k_pad))

@@ -289,11 +289,14 @@ def downsample_center_map(cmap: torch.Tensor, stride: int = 8
     padding counts as zeros). ``(..., H, W, 1)`` → ``(..., h, w, 1)``."""
     lead = cmap.shape[:-3]
     h, w = cmap.shape[-3], cmap.shape[-2]
-    x = cmap.reshape(-1, h, w, 1).permute(0, 3, 1, 2)
+    # One batch axis needs no reshape (and a traced symbolic batch then
+    # needs no guard on the expanded map's strides).
+    batched = len(lead) == 1
+    x = (cmap if batched else cmap.reshape(-1, h, w, 1)).permute(0, 3, 1, 2)
     py, px = same_padding(h, 9, stride), same_padding(w, 9, stride)
     x = F.pad(x, (px[0], px[1], py[0], py[1]))
-    y = F.avg_pool2d(x, 9, stride, divisor_override=81)
-    return y.permute(0, 2, 3, 1).reshape(*lead, *y.shape[-2:], 1)
+    y = F.avg_pool2d(x, 9, stride, divisor_override=81).permute(0, 2, 3, 1)
+    return y if batched else y.reshape(*lead, *y.shape[1:])
 
 
 def paint_heatmaps(joints_px: torch.Tensor, size: int, stride: int,

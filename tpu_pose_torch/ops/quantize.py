@@ -14,7 +14,10 @@ CUDA forms in ``csrc/quantize_act.cu``; their plain PyTorch versions are:
 in int32: the JAX package leaves it to XLA's
 ``conv_general_dilated(preferred_element_type=int32)``; here it is im2col
 plus ``torch._int_mm``, tiled over output rows, with the float epilogue
-applied tile by tile.
+applied tile by tile. With a symbolic batch (an export with ``batch=None``)
+the tiles cannot be cut from the batch: the batch is padded to a multiple
+of a fixed group of images and a ``map`` runs the group's tiles over the
+groups (:func:`_group_tiles`).
 """
 
 from __future__ import annotations
@@ -28,6 +31,9 @@ import torch.nn.functional as F
 # its float32 epilogue), whatever the batch: untiled, the 9×9×128 conv at
 # 184² would need 16·184²·10368 B ≈ 5.6 GB of im2col at batch 16.
 TILE_BYTES = 512 * 2 ** 20
+# Most images in one group when the batch is symbolic: the static path's
+# tile of whole images, capped so that a small batch is padded by few.
+GROUP_IMAGES = 8
 
 
 def act_scale(x: torch.Tensor, a_scale=None) -> torch.Tensor:
@@ -124,9 +130,19 @@ def _tiles(b: int, h: int, row_bytes: int
             yield b0, b0 + 1, h0, min(h, h0 + rows)
 
 
+def _group_tiles(h: int, row_bytes: int) -> tuple:
+    """(images per group, the tiles of one group) for a symbolic batch:
+    the images of the static path's whole-image tile, at most
+    :data:`GROUP_IMAGES`, or one image cut into runs of rows when one
+    image exceeds :data:`TILE_BYTES`."""
+    g = max(1, min(GROUP_IMAGES, TILE_BYTES // (h * row_bytes)))
+    return g, list(_tiles(g, h, row_bytes))
+
+
 def int8_conv(x: torch.Tensor, w_t: torch.Tensor, k: int, n_out: int,
               epilogue, out_dtype: torch.dtype,
-              a_scale: torch.Tensor | None = None) -> torch.Tensor:
+              a_scale: torch.Tensor | None = None,
+              epilogue_args: tuple = ()) -> torch.Tensor:
     """SAME stride-1 ``k×k`` conv of ``x`` (B, H, W, C) with the im2col
     weights ``w_t`` (K_pad, N_pad) int8, K ordered (kh, kw, C). ``x`` is
     int8 values (``a_scale`` None), or float32/bf16 activations with the
@@ -134,10 +150,11 @@ def int8_conv(x: torch.Tensor, w_t: torch.Tensor, k: int, n_out: int,
     as it gathers its rows (kernel B2's fused form,
     ``cuda_kernels.quantize_im2col_cuda``: no int8 copy of ``x`` and no
     padded copy is made). Any strides with a unit channel stride. Each
-    tile's int32 product goes through ``epilogue(acc[:, :n_out])``; its
-    float result is cast into the (B, H, W, n_out) ``out_dtype`` output,
-    which is returned. A 1×1 conv of int8 values with K_pad = C needs no
-    gather: the GEMM reads ``x`` as it is."""
+    tile's int32 product goes through ``epilogue(acc[:, :n_out],
+    *epilogue_args)``; its float result is cast into the (B, H, W, n_out)
+    ``out_dtype`` output, which is returned. A 1×1 conv of int8 values
+    with K_pad = C needs no gather: the GEMM reads ``x`` as it is. A
+    symbolic batch takes :func:`_int8_conv_grouped`."""
     from tpu_pose_torch.ops import cuda_kernels   # it imports this module
     b, h, w, c = x.shape
     k_real = k * k * c
@@ -149,6 +166,9 @@ def int8_conv(x: torch.Tensor, w_t: torch.Tensor, k: int, n_out: int,
         raise ValueError(f"int8_conv takes int8 values without a scale or "
                          f"float activations with one; got {x.dtype} and "
                          f"a_scale={a_scale}")
+    if isinstance(b, torch.SymInt):
+        return _int8_conv_grouped(x, w_t, k, n_out, epilogue, out_dtype,
+                                  a_scale, epilogue_args)
     out = torch.empty((b, h, w, n_out), dtype=out_dtype, device=x.device)
     direct = k == 1 and k_pad == c and a_scale is None
     buf = None
@@ -163,6 +183,61 @@ def int8_conv(x: torch.Tensor, w_t: torch.Tensor, k: int, n_out: int,
                                   device=x.device)
             a = cuda_kernels.quantize_im2col_cuda(x, a_scale, k, tile,
                                                   buf[:m])
-        y = epilogue(int8_gemm(a, w_t)[:, :n_out])
+        y = epilogue(int8_gemm(a, w_t)[:, :n_out], *epilogue_args)
         out[b0:b1, h0:h1].view(m, n_out).copy_(y)
     return out
+
+
+def _int8_conv_grouped(x: torch.Tensor, w_t: torch.Tensor, k: int,
+                       n_out: int, epilogue, out_dtype: torch.dtype,
+                       a_scale: torch.Tensor | None = None,
+                       epilogue_args: tuple = ()) -> torch.Tensor:
+    """:func:`int8_conv` for any batch, symbolic included: the batch
+    padded to a multiple of the group of :func:`_group_tiles` (the pad
+    repeats the last image; its rows are dropped after), then one ``scan``
+    step per group runs the group's tiles, each gathered by B2's
+    functional form (``cuda_kernels.quantize_im2col_tile_cuda``: a loop
+    body writes into no buffer of its caller). The GEMM is exact and the
+    epilogue elementwise, so the output is :func:`int8_conv`'s, bit for
+    bit. The scale was taken over the real images, before the pad.
+
+    torch 2.11's eager ``scan`` runs its first step once more to learn the
+    shapes of its outputs (later versions do not): there, an exported
+    program computes the first group of each conv twice. (``map``, which
+    does not, is traced as a ``scan`` by torch 2.13's export.)"""
+    from torch._higher_order_ops.scan import scan_op
+    from tpu_pose_torch.ops import cuda_kernels   # it imports this module
+    b, h, w, c = x.shape
+    k_pad, n_pad = w_t.shape
+    g, tiles = _group_tiles(h, w * (k_pad + 8 * n_pad))
+    direct = k == 1 and k_pad == c and a_scale is None
+    n_groups = (b + g - 1) // g
+    idx = torch.clamp(torch.arange(n_groups * g, device=x.device), max=b - 1)
+    groups = x.index_select(0, idx).view(n_groups, g, h, w, c)
+    scale = () if a_scale is None else (a_scale,)
+
+    def body(done, xg, w_t, *rest):
+        a_scale = rest[0] if scale else None
+        args = rest[len(scale):]
+        parts = []
+        for tile in tiles:
+            b0, b1, h0, h1 = tile
+            m = (b1 - b0) * (h1 - h0) * w
+            if direct:
+                a = xg[b0:b1, h0:h1].reshape(m, c)
+            else:
+                a = cuda_kernels.quantize_im2col_tile_cuda(xg, a_scale, k,
+                                                           tile, k_pad)
+            y = epilogue(int8_gemm(a, w_t)[:, :n_out], *args)
+            parts.append(y.to(out_dtype).view(b1 - b0, h1 - h0, w, n_out))
+        # One tile of whole images, or one image's runs of rows.
+        return done + 1, (parts[0] if len(parts) == 1
+                          else torch.cat(parts, dim=1))
+
+    done = torch.zeros((), dtype=torch.int64, device=x.device)
+    _, y = scan_op(body, [done], [groups],
+                   (w_t,) + scale + tuple(epilogue_args))
+    # A gather of the b real images: a slice's length would be min(b, n·g)
+    # and a narrow's bound b ≤ n·g, neither of which the tracer proves.
+    return y.view(n_groups * g, h, w, n_out).index_select(
+        0, torch.arange(b, device=x.device))

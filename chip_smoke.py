@@ -164,6 +164,7 @@ write the reference's files.
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import copy
 import dataclasses
@@ -4318,6 +4319,7 @@ DP_PARAM_ATOL = 5e-4          # tests/test_parallel.py's DP-step bound
 PARALLEL_CLI_ARGS = ["--synthetic", "--steps", "3"]
 PARALLEL_TIMEOUT_S = 600.0
 ARTIFACT_JOINTS_ATOL = 1e-2   # tests/test_export.py's sharded artifact
+SHARDED_VIDEO_MODES_T = 8     # the temporal and independent modes' frames
 
 
 def sharded_b1_launches(batch: int, world: int, chunk: int) -> int:
@@ -4327,6 +4329,41 @@ def sharded_b1_launches(batch: int, world: int, chunk: int) -> int:
     without micro-chunks."""
     rows = batch // world
     return -(-rows // chunk) if chunk else 1
+
+
+def video_collectives(mode: str, iters: int = 100, restarts: int = 4,
+                      shared_beta: bool = True, masked: bool = False,
+                      anchored: bool = False, outputs: int = 8) -> dict:
+    """Collectives by kind (``parallel/mesh.COLLECTIVES``) on each rank
+    per frame-sharded video call: ``outputs`` gathers of the results (8
+    from ``estimate_and_fit_video(mesh=)``, 5 from a
+    ``fitting/temporal.py`` fit with ``mesh=``);
+    the temporal mode one more, of the 2D joints; the smooth mode one of
+    its hypotheses' lattice (with more than one hypothesis) or of its β
+    (with one, a shared β and no anchor) and one of the mask, a halo
+    exchange per refine step and one of the mask, and a β ``psum`` per
+    step when β is shared."""
+    if mode == "independent":
+        return {"gather": outputs, "halo": 0, "psum": 0}
+    if mode == "temporal":
+        return {"gather": outputs + 1, "halo": 0, "psum": 0}
+    first = restarts > 1 or (shared_beta and not anchored)
+    return {"gather": outputs + int(first) + int(masked),
+            "halo": iters + int(masked), "psum": iters * int(shared_beta)}
+
+
+def _collectives_of(fn):
+    """(result, launches, seconds, collectives by kind) of ``fn()``, the
+    kernel and collective counts zeroed before."""
+    from tpu_pose_torch.parallel import mesh as mesh_lib
+    mesh_lib.COLLECTIVES.clear()
+    out, launches, seconds = _counted(fn)
+    return out, launches, seconds, dict(mesh_lib.COLLECTIVES)
+
+
+def _check_collectives(got: dict, want: dict, what: str) -> None:
+    check(collections.Counter(got) == collections.Counter(want),
+          f"{what}: collectives {got}, expected {want}")
 
 
 def _bytes(tensors) -> int:
@@ -4527,6 +4564,111 @@ def phase_sharded_export(est: PoseEstimator, mesh,
     return counts
 
 
+def phase_sharded_video(est: PoseEstimator, mesh,
+                        frames: np.ndarray) -> dict:
+    """The frame-sharded ``estimate_and_fit_video(mode="smooth",
+    mesh=)`` (``est`` with VIDEO_RESTARTS hypotheses, 100 refine steps)
+    against the live unsharded call on the same VIDEO_T frames: seconds
+    per call of each (a warm-up of each, then two calls each in turns),
+    B1 launches per call on this rank (one: the rank's frames in one
+    decode), the collectives per call by kind against
+    ``video_collectives``; under ``Deterministic`` the sharded call equals
+    the live one in every output field when the world is one rank. Then
+    the temporal and independent modes once each on the first
+    SHARDED_VIDEO_MODES_T frames, under ``Deterministic``, against their
+    live calls in the same way."""
+    def call(clip, mode, sharded):
+        return lambda: est.estimate_and_fit_video(
+            clip, mode, mesh=mesh if sharded else None)
+
+    live_call, sharded_call = (call(frames, "smooth", s) for s in (0, 1))
+    first = live_call()
+    sharded_call()
+    live_s, sharded_s = [], []
+    for _ in range(2):
+        live, live_counts, s = _counted(live_call)
+        live_s.append(s)
+        res, counts, s, collectives = _collectives_of(sharded_call)
+        sharded_s.append(s)
+    check_result(res, len(frames))
+    one_b1 = {**B2_NONE, "soft_argmax": 1}
+    check(counts == live_counts == one_b1,
+          f"sharded_video: launched {counts}, live {live_counts}")
+    want = video_collectives("smooth", restarts=est.fit_restarts)
+    _check_collectives(collectives, want, "sharded_video")
+    with Deterministic():
+        exact = _max_gap(sharded_call(), live_call())
+    if mesh.size() == 1:
+        check(max(exact.values()) == 0.0,
+              f"sharded_video: deterministic gaps {exact}")
+    modes = {}
+    for mode in ("temporal", "independent"):
+        clip = frames[:SHARDED_VIDEO_MODES_T]
+        with Deterministic():
+            want_res, _, mode_live_s = _counted(call(clip, mode, False))
+            got, mode_counts, mode_s, mode_coll = _collectives_of(
+                call(clip, mode, True))
+        check_result(got, len(clip))
+        gap = _max_gap(got, want_res)
+        check(mesh.size() > 1 or max(gap.values()) == 0.0,
+              f"sharded_video {mode}: deterministic gaps {gap}")
+        check(mode_counts == one_b1,
+              f"sharded_video {mode}: launched {mode_counts}")
+        _check_collectives(mode_coll, video_collectives(mode),
+                           f"sharded_video {mode}")
+        modes[mode] = {"frames": len(clip), "s": mode_s,
+                       "live_s": mode_live_s, "collectives": mode_coll,
+                       "deterministic_max_gap": gap}
+    emit({"phase": "sharded_video", "world_size": mesh.size(),
+          "frames": len(frames), "restarts": est.fit_restarts,
+          "refine_steps": 100, "s_per_call": sharded_s,
+          "live_s_per_call": live_s, "b1_per_call": counts["soft_argmax"],
+          "collectives_per_call": collectives,
+          "collectives_expected": want,
+          "max_d_theta": _max_gap(res, live)["theta"],
+          "live_vs_live_max_d_theta": _max_gap(first, live)["theta"],
+          "deterministic_max_gap": exact, "modes": modes})
+    return counts
+
+
+def phase_sharded_video_export(est: PoseEstimator, mesh,
+                               frames: np.ndarray) -> dict:
+    """``export_estimator(fn="estimate_and_fit_video", mode="smooth",
+    batch=T, n_devices=world)``: the per-rank program, its halo exchanges
+    and β sums inside its replayed Adam scan; loaded and run against the
+    live frame-sharded call on the same frames (``est`` an
+    :func:`export_estimator_of` with VIDEO_RESTARTS hypotheses, as
+    ``phase_export_video_symbolic``'s): export, save, load and call
+    seconds, the recorded sharding, B1 once per call on each side, θ and
+    joints3d within that phase's bounds (section 8's rule)."""
+    path = os.path.join(PARALLEL_OUT, "video_smooth_dp")
+    meta, export_s, save_s, mb = _export_timed(
+        lambda p: export_lib.export_estimator(
+            est, p, fn="estimate_and_fit_video", batch=len(frames),
+            n_devices=mesh.size(), mode="smooth"), path)
+    t0 = time.perf_counter()
+    prog = export_lib.load(path)
+    load_s = time.perf_counter() - t0
+    check(meta["sharding"] == {"n_devices": mesh.size(), "axis": "data"},
+          f"sharded_video_export: sharding {meta['sharding']}")
+    live, live_l, live_s = _counted(
+        lambda: est.estimate_and_fit_video(frames, "smooth", mesh=mesh))
+    out, art_l, art_s = _counted(lambda: prog(frames))
+    gap = _artifact_gap(out, live)
+    check(gap["max_d_theta"] < ARTIFACT_THETA
+          and gap["joints3d_mpjpe_mm"] <= ARTIFACT_MPJPE_MM,
+          f"sharded_video_export: artifact vs live {gap}")
+    check(art_l == live_l == {**B2_NONE, "soft_argmax": 1},
+          f"sharded_video_export: launched {art_l}, live {live_l}")
+    emit({"phase": "sharded_video_export", "world_size": mesh.size(),
+          "frames": len(frames), "restarts": est.fit_restarts,
+          "export_s": export_s, "save_s": save_s, "load_s": load_s,
+          "program_mb": mb, "s_per_call": art_s, "live_s_per_call": live_s,
+          "b1_per_call": art_l["soft_argmax"],
+          "sharding": meta["sharding"], **gap})
+    return art_l
+
+
 def phase_parallel_cli() -> dict:
     """The train CLI under the launcher, as a user runs it (``torchrun
     --standalone --nproc_per_node 1 -m tpu_pose_torch.tools.train_cpm``
@@ -4598,6 +4740,16 @@ def phase_parallel_main_path(timed_flag: str | None = None,
             wait_for_file(go_flag, DAY_ONE_TIMEOUT_S)
         launches["sharded_eval"] = phase_sharded_eval(est, mesh)
         launches["sharded_export"] = phase_sharded_export(est, mesh, images)
+        est_v = PoseEstimator(est.cpm, est.smpl_model, est.prior, MAIN_CPM,
+                              est.fit_cfg, fit_restarts=VIDEO_RESTARTS,
+                              device=DEVICE)
+        launches["sharded_video"] = phase_sharded_video(
+            est_v, mesh, _frames(VIDEO_T, size, size, seed=5))
+        launches["sharded_video_export"] = phase_sharded_video_export(
+            PoseEstimator(est.cpm, est.smpl_model, est.prior, MAIN_CPM,
+                          EXPORT_FIT, fit_restarts=VIDEO_RESTARTS,
+                          device=DEVICE), mesh,
+            _frames(VIDEO_SYMBOLIC_T[0], size, size, seed=67))
         launches["parallel_cli"] = phase_parallel_cli()
         backend = torch.distributed.get_backend()
     finally:
@@ -4854,6 +5006,9 @@ def main() -> int:
             "soft_argmax"],
         "launches_sharded_export_path": par["sharded_export"][
             "soft_argmax"],
+        "launches_sharded_video_path": par["sharded_video"]["soft_argmax"],
+        "launches_sharded_video_export_path": par["sharded_video_export"][
+            "soft_argmax"],
         "launches_dp_train_path": par["dp_train_step"]["soft_argmax"],
         "max_abs_err": err["max_abs_err"],
         "ms": sa_row["ms"], "plain_ms": sa_row["plain_ms"],
@@ -4882,6 +5037,7 @@ def main() -> int:
         - sc8["quantize_act"],
         "launches_sharded_paths": _sum_counts(
             [par["sharded_main_path"], par["sharded_export"],
+             par["sharded_video"], par["sharded_video_export"],
              *par["sharded_eval"].values()])["quantize_act"],
         "launches_dp_train_path": par["dp_train_step"]["quantize_act"],
         "max_abs_err": q_err["max_abs_err"],
@@ -4908,6 +5064,7 @@ def main() -> int:
             "quantize_im2col"],
         "launches_sharded_paths": _sum_counts(
             [par["sharded_main_path"], par["sharded_export"],
+             par["sharded_video"], par["sharded_video_export"],
              *par["sharded_eval"].values()])["quantize_im2col"],
         "launches_dp_train_path": par["dp_train_step"]["quantize_im2col"],
         "max_abs_err": g_err["max_abs_err"],

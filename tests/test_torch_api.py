@@ -17,8 +17,9 @@ from tpu_pose.utils import tf_converter as jax_conv
 from tpu_pose_torch.api import PoseEstimator
 from tpu_pose_torch.models import cpm as cpm_lib
 from tpu_pose_torch.utils import config as tc
+from torch_threads import one_thread
 
-torch.set_num_threads(1)
+one_thread()
 
 
 def _cfgs(cfg_mod, compute_dtype):

@@ -835,6 +835,27 @@ def test_sharded_b1_launches():
     assert chip_smoke.sharded_b1_launches(8, 1, 3) == 3
 
 
+def test_video_collectives():
+    """Collectives per rank per frame-sharded video call: the outputs'
+    gathers; temporal: one more, of the 2D joints; smooth: the lattice
+    (or, with one hypothesis, the shared β unless anchored), the mask's
+    gather and halo, and per refine step a halo and a shared β's psum.
+    tests/test_torch_parallel.py holds it against counted runs at world
+    two, test_parallel_phases_run_with_the_computed_launches at one."""
+    vc = chip_smoke.video_collectives
+    assert vc("independent") == {"gather": 8, "halo": 0, "psum": 0}
+    assert vc("temporal", outputs=5) == {"gather": 6, "halo": 0, "psum": 0}
+    assert vc("smooth") == {"gather": 9, "halo": 100, "psum": 100}
+    assert vc("smooth", iters=30, masked=True, outputs=5) == {
+        "gather": 7, "halo": 31, "psum": 30}
+    assert vc("smooth", restarts=1, anchored=True) == {
+        "gather": 8, "halo": 100, "psum": 100}
+    assert vc("smooth", restarts=1, shared_beta=False) == {
+        "gather": 8, "halo": 100, "psum": 0}
+    assert vc("smooth", restarts=1) == {"gather": 9, "halo": 100,
+                                        "psum": 100}
+
+
 def test_wait_for_file_returns_on_the_flag_or_the_exit(tmp_path):
     """main() starts the other processes once the data-parallel process
     has created its flag after the timed phases, or has exited; a flag
@@ -873,17 +894,26 @@ PARALLEL_KEYS = {
                       "s_per_step_mesh", "s_per_step_single",
                       "grad_all_reduce_ms", "grad_all_reduce_bytes"},
     "sharded_export": {"export_s", "load_s", "s_per_call", "b1_per_call",
-                       "max_d_joints2d_px", "sharding"}}
+                       "max_d_joints2d_px", "sharding"},
+    "sharded_video": {"s_per_call", "live_s_per_call", "b1_per_call",
+                      "collectives_per_call", "collectives_expected",
+                      "max_d_theta", "deterministic_max_gap", "modes"},
+    "sharded_video_export": {"export_s", "save_s", "load_s", "s_per_call",
+                             "live_s_per_call", "b1_per_call",
+                             "max_d_theta", "joints3d_mpjpe_mm",
+                             "sharding"}}
 
 
 def test_parallel_phases_run_with_the_computed_launches(cpu_export,
                                                         monkeypatch,
                                                         tmp_path, capsys):
-    """sharded_main_path, sharded_eval, dp_train_step and sharded_export
-    on the CPU in a gloo world of one, at a small size: every check
-    inside passes (B1 once per sharded call, per evaluated batch and per
-    artifact call; the DP step's loss and parameters; no B2 anywhere),
-    and each prints its keys."""
+    """sharded_main_path, sharded_eval, dp_train_step, sharded_export,
+    sharded_video and sharded_video_export on the CPU in a gloo world of
+    one, at a small size: every check inside passes (B1 once per sharded
+    call, per evaluated batch and per artifact call; the DP step's loss
+    and parameters; the video calls' collectives as video_collectives
+    counts them, and equal to the live calls; no B2 anywhere), and each
+    prints its keys."""
     from tpu_pose_torch.api import PoseEstimator
     from tpu_pose_torch.parallel import mesh as mesh_lib
     cfg, fit = cpu_export
@@ -904,6 +934,12 @@ def test_parallel_phases_run_with_the_computed_launches(cpu_export,
                       for k in ("h36m", "pckh")}
         assert set(chip_smoke.phase_dp_train_step(mesh).values()) == {0}
         assert chip_smoke.phase_sharded_export(est, mesh, images) == b1
+        est_v = PoseEstimator(est.cpm, est.smpl_model, None, cfg, fit,
+                              fit_restarts=2, device="cpu")
+        video = chip_smoke._frames(3, 64, 64, seed=5)
+        assert chip_smoke.phase_sharded_video(est_v, mesh, video) == b1
+        assert chip_smoke.phase_sharded_video_export(
+            est_v, mesh, video[:2]) == b1
     finally:
         torch.distributed.destroy_process_group()
     lines = _phase_lines(capsys.readouterr().out)
@@ -915,3 +951,10 @@ def test_parallel_phases_run_with_the_computed_launches(cpu_export,
     assert set(lines["sharded_main_path"]["deterministic_max_gap"]
                .values()) == {0.0}
     assert lines["sharded_eval"]["h36m"]["equal"]
+    video = lines["sharded_video"]
+    assert video["collectives_per_call"] == {"gather": 9, "halo": 100,
+                                             "psum": 100}
+    assert set(video["deterministic_max_gap"].values()) == {0.0}
+    for mode in ("temporal", "independent"):
+        assert set(video["modes"][mode]["deterministic_max_gap"]
+                   .values()) == {0.0}

@@ -11,8 +11,9 @@ import torch
 
 from tpu_pose.utils import config as jc
 from tpu_pose_torch.utils import config as tc
+from torch_threads import one_thread
 
-torch.set_num_threads(1)
+one_thread()
 
 REPO = Path(__file__).resolve().parents[1]
 

@@ -16,8 +16,9 @@ from tpu_pose.utils import config as jax_config, tf_converter as jax_conv
 from tpu_pose_torch.models import cpm as torch_cpm
 from tpu_pose_torch.utils import config as torch_config
 from tpu_pose_torch.utils import tf_converter as torch_conv
+from torch_threads import one_thread
 
-torch.set_num_threads(1)
+one_thread()
 
 # tests/test_api.py's SMALL_CPM, in float32 so the comparison is of the
 # algorithm rather than of where bf16 rounds.

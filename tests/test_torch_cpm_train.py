@@ -24,8 +24,9 @@ from tpu_pose_torch.ops import preprocess as pre
 from tpu_pose_torch.tools import train_cpm
 from tpu_pose_torch.utils import checkpoint
 from tpu_pose_torch.utils.config import CPMConfig
+from torch_threads import one_thread
 
-torch.set_num_threads(1)
+one_thread()
 
 CFG_KW = dict(input_size=64, features=16, stage1_head_width=32,
               refine_width=16, num_stages=2)

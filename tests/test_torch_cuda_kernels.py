@@ -19,8 +19,9 @@ import torch
 from tpu_pose_torch.models import cpm as cpm_lib
 from tpu_pose_torch.ops import cuda_kernels, quantize, softargmax
 from tpu_pose_torch.utils.config import CPMConfig
+from torch_threads import one_thread
 
-torch.set_num_threads(1)
+one_thread()
 
 # The reference's own Pallas-vs-XLA tolerances (tests/test_pallas.py):
 # float32 sums over 2116 cells taken in another order.

@@ -21,8 +21,9 @@ from tpu_pose.utils.config import CPMConfig as JaxCPMConfig
 from tpu_pose_torch.data import datasets, pipeline, synthetic
 from tpu_pose_torch.models import joints, smpl_data
 from tpu_pose_torch.utils.config import CPMConfig
+from torch_threads import one_thread
 
-torch.set_num_threads(1)
+one_thread()
 
 CFG_KW = dict(input_size=64, features=16, stage1_head_width=32,
               refine_width=16, num_stages=2)

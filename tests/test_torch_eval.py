@@ -27,8 +27,9 @@ from tpu_pose_torch.models import joints, smpl_data
 from tpu_pose_torch.parallel import eval as eval_lib
 from tpu_pose_torch.tools import convert_dataset, eval_2d, eval_h36m
 from tpu_pose_torch.utils import config as tc
+from torch_threads import one_thread
 
-torch.set_num_threads(1)
+one_thread()
 
 # BASELINE.json's budget for fitted joints, and so for every 3D metric of
 # them (a metric of joints that moved ≤ 1 mm moves ≤ 1 mm).

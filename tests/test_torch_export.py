@@ -43,8 +43,9 @@ from tpu_pose_torch.api import PoseEstimator
 from tpu_pose_torch.fitting import fit as fit_lib
 from tpu_pose_torch.ops import cuda_kernels
 from tpu_pose_torch.utils import config as tc
+from torch_threads import one_thread
 
-torch.set_num_threads(1)
+one_thread()
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = dict(rtol=0, atol=1e-5)
@@ -796,14 +797,18 @@ def test_int8_symbolic_artifact_matches_jax_artifact(pair, loaded,
 
 
 def test_export_remaining_refusals(est, tmp_path):
-    """What the port still refuses, as the JAX package or ROADMAP says: a
-    video fit sharded over ranks (A.21b) and a symbolic batch with
-    cpm_microbatch chunking (as in JAX); cross-lowering is
-    test_cross_lowering_raises."""
-    with pytest.raises(ValueError, match="A.21b"):
+    """What the port still refuses, as the JAX package does: a sharded
+    video whose T the ranks do not divide, a sharded symbolic T, and a
+    symbolic batch with cpm_microbatch chunking; cross-lowering is
+    test_cross_lowering_raises. Each refuses before any collective, so
+    without a process group."""
+    with pytest.raises(ValueError, match="not divisible by n_devices"):
         pexport.export_estimator(est, str(tmp_path / "v1"),
-                                 fn="estimate_and_fit_video", batch=2,
-                                 n_devices=1)
+                                 fn="estimate_and_fit_video", batch=3,
+                                 n_devices=2)
+    with pytest.raises(ValueError, match="needs a static batch"):
+        pexport.export_estimator(est, str(tmp_path / "v1"),
+                                 fn="estimate_and_fit_video", n_devices=1)
     chunked = copy.copy(est)
     chunked.cpm_microbatch = 2
     with pytest.raises(ValueError, match="cpm_microbatch"):

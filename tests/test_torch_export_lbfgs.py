@@ -19,7 +19,6 @@ import dataclasses
 
 import numpy as np
 import pytest
-import torch
 
 from test_torch_export import _carry, _cfgs, _frames
 from tpu_pose.api import PoseEstimator as JaxEstimator
@@ -27,8 +26,9 @@ from tpu_pose.utils import config as jc
 from tpu_pose_torch import api
 from tpu_pose_torch import export as pexport
 from tpu_pose_torch.utils import config as tc
+from torch_threads import one_thread
 
-torch.set_num_threads(1)
+one_thread()
 
 FIELDS = ("joints2d", "theta", "beta", "cam", "joints3d")
 

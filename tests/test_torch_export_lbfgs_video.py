@@ -8,13 +8,13 @@ over L-BFGS hypothesis fits).
 
 import numpy as np
 import pytest
-import torch
 
 from test_torch_export import _frames, _np
 from test_torch_export_lbfgs import FIELDS, lbfgs_estimator
 from tpu_pose_torch import export as pexport
+from torch_threads import one_thread
 
-torch.set_num_threads(1)
+one_thread()
 
 
 @pytest.fixture(scope="module")

@@ -20,8 +20,9 @@ from tpu_pose_torch.fitting import energy as torch_energy, fit as torch_fit
 from tpu_pose_torch.fitting import priors as torch_priors
 from tpu_pose_torch.models import smpl_data as torch_data
 from tpu_pose_torch.utils import config as tc
+from torch_threads import one_thread
 
-torch.set_num_threads(1)
+one_thread()
 
 
 def _small_fit(cfg_mod, **kw):

@@ -32,8 +32,9 @@ from tpu_pose_torch.tools import (demo, hard_sweep, profile_entry,
                                   selfcheck_e2e, track_bench)
 from tpu_pose_torch.utils import checkpoint, tf_converter
 from tpu_pose_torch.utils import config as tc
+from torch_threads import one_thread
 
-torch.set_num_threads(1)
+one_thread()
 
 MM = 1e-3                 # BASELINE.json's budget, metres
 PX = 0.05

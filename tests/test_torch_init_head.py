@@ -26,8 +26,9 @@ from tpu_pose_torch.api import PoseEstimator
 from tpu_pose_torch.fitting import fit as torch_fit, init_head as head
 from tpu_pose_torch.models import smpl_data as torch_data
 from tpu_pose_torch.utils import config as tc
+from torch_threads import one_thread
 
-torch.set_num_threads(1)
+one_thread()
 
 SMALL_CPM = dict(input_size=64, features=16, stage1_head_width=32,
                  refine_width=16, num_stages=2, compute_dtype="float32")

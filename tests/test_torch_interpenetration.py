@@ -42,8 +42,9 @@ from tpu_pose_torch.fitting import priors as torch_priors
 from tpu_pose_torch.models import smpl as smpl_lib
 from tpu_pose_torch.models import smpl_data as torch_data
 from tpu_pose_torch.utils import config as tc
+from torch_threads import one_thread
 
-torch.set_num_threads(1)
+one_thread()
 
 PENALTY_TOL = dict(rtol=1e-5, atol=1e-5)
 E_TOL = dict(rtol=1e-5, atol=1e-6)

@@ -39,8 +39,9 @@ from tpu_pose_torch.fitting import fit as torch_fit, lbfgs
 from tpu_pose_torch.fitting import priors as torch_priors, temporal
 from tpu_pose_torch.models import smpl_data as torch_data
 from tpu_pose_torch.utils import config as tc
+from torch_threads import one_thread
 
-torch.set_num_threads(1)
+one_thread()
 
 STEP_TOL = dict(rtol=1e-5, atol=1e-5)
 END_TOL = dict(rtol=0, atol=1e-3)

@@ -33,8 +33,9 @@ from tpu_pose_torch.api import PoseEstimator
 from tpu_pose_torch.models import cpm as torch_cpm
 from tpu_pose_torch.ops import preprocess as torch_pre
 from tpu_pose_torch.utils import config as tc
+from torch_threads import one_thread
 
-torch.set_num_threads(1)
+one_thread()
 
 SMALL = dict(input_size=64, features=16, stage1_head_width=32,
              refine_width=16, num_stages=3)

@@ -1,6 +1,7 @@
 """The port's data-parallel layer (tpu_pose_torch/parallel/mesh.py, the
-sharded evaluators, the data-parallel train step, sharded artifacts and
-the CLIs under a launcher) on the CPU over gloo.
+sharded evaluators, the data-parallel train step, sharded artifacts, the
+frame-sharded video fits and their artifacts, and the CLIs under a
+launcher) on the CPU over gloo.
 
 One world of two ranks per module (this file run as a script, joined
 through a FileStore under the module's tmp dir) runs every scenario once
@@ -26,8 +27,9 @@ import torch
 from tpu_pose_torch.models import cpm as cpm_lib
 from tpu_pose_torch.parallel import mesh as mesh_lib
 from tpu_pose_torch.utils import config as tc
+from torch_threads import one_thread
 
-torch.set_num_threads(1)
+one_thread()
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLD = 2
@@ -81,7 +83,54 @@ def _inputs():
             "headsize": (rng.rand(n) * 10 + 5).astype(np.float32),
             "area": (rng.rand(n) * 2000 + 500).astype(np.float32)})
     return {"imgs8": imgs8, "imgs3": imgs8[:3], "j2d": j2d, "conf": conf,
-            "train": batches, "evals": evals}
+            "train": batches, "evals": evals, **_video_inputs()}
+
+
+# tests/test_parallel.py's sharded smooth video fit: T = 16 frames of a
+# body whose pose moves from θ_A to θ_B, SMALL_FIT, 2 hypotheses, 30
+# refine steps, no prior, the full-size synthetic SMPL of seed 0 in both
+# packages, as that test's estimator has. (On the 400-vertex synthetic
+# model the fit is ill-conditioned: JAX's own sharded fit ends 6.0e-3
+# from its single-device one in θ, against its 2e-4 bound; 1.4e-5 on the
+# full-size model.)
+VIDEO_T = 16
+VIDEO_KW = dict(restarts=2, iters=30)
+# The sharded video artifacts: each of the world's two ranks two frames.
+ARTIFACT_T = 4
+VIDEO_MODES = ("smooth", "temporal", "independent")
+# Sharded against single-device, both in one package: JAX's own bounds
+# (tests/test_parallel.py); against JAX: tests/test_torch_temporal.py's.
+SHARD_TOL = dict(rtol=0, atol=2e-4)
+SHARD_ENERGY_TOL = dict(rtol=0, atol=1e-5)
+END_TOL = dict(rtol=0, atol=1e-3)
+
+
+def _video_inputs():
+    """The video sequence's 2D joints (pixels, a 64² frame) from the
+    port's SMPL, as tests/test_parallel.py draws them; the mask, anchor
+    and frames of the edge cases and artifacts."""
+    from tpu_pose_torch.models import camera, joints, smpl, smpl_data
+    model = smpl_data.synthetic_smpl(seed=0, device="cpu")
+    rng = np.random.RandomState(4)
+    th_a, th_b = rng.randn(72) * 0.2, rng.randn(72) * 0.2
+    w = np.arange(VIDEO_T)[:, None] / (VIDEO_T - 1.0)
+    theta = torch.tensor((1 - w) * th_a + w * th_b, dtype=torch.float32)
+    with torch.no_grad():
+        out = smpl.smpl_forward(model, torch.zeros(VIDEO_T, 10), theta)
+        j3d = joints.select_smpl_joints(out.joints)
+        j2d = (camera.weak_perspective_project(
+            j3d, torch.tensor([0.9, 0.0, 0.0])) + 1.0) * 32.0
+    mask = np.ones(VIDEO_T, np.float32)
+    mask[VIDEO_T // 2 - 1:VIDEO_T // 2 + 1] = 0.0   # across the ranks
+    rng = np.random.RandomState(6)
+    anchor = {"theta": (0.2 * rng.randn(72)).astype(np.float32),
+              "beta": (0.5 * rng.randn(10)).astype(np.float32),
+              "cam": np.array([0.9, 0.0, 0.0], np.float32)}
+    frames = np.random.RandomState(8).randint(
+        0, 255, (ARTIFACT_T, 64, 64, 3)).astype(np.uint8)
+    return {"video_j2d": j2d.numpy(), "video_conf": np.ones(
+        (VIDEO_T, 14), np.float32), "video_mask": mask,
+        "video_anchor": anchor, "video_frames": frames}
 
 
 def _train_params():
@@ -111,6 +160,93 @@ def _rowwise(est):
     out = copy.copy(est)
     out.estimate_and_fit = rows(est.estimate_and_fit)
     out._front_end = rows(est._front_end)
+    return out
+
+
+def _video_rank(rank, mesh, est, inp, workdir) -> dict:
+    """The frame-sharded video fits and artifacts on this rank: sharded
+    against the port's single-device call, each Viterbi selection
+    recorded; the halo exchange and psum's values."""
+    import dataclasses
+
+    from tpu_pose_torch import export as pexport
+    from tpu_pose_torch.api import PoseEstimator
+    from tpu_pose_torch.fitting import temporal
+    out = {}
+    shard = mesh_lib.frame_shard(mesh, "cpu")
+    first, last = (torch.full((2, 3), 10.0 * rank + k) for k in (1, 2))
+    out["halo"] = [t.numpy() for t in mesh_lib.halo_exchange(first, last,
+                                                             shard)]
+    out["psum"] = mesh_lib.psum(torch.tensor([rank + 1.0, 2.0]),
+                                mesh).numpy()
+    out["edges"] = {k: float(v) for k, v in shard.edges().items()}
+
+    model = est.smpl_model
+    fit_cfg = _cfgs(tc)[1]
+    j, c = (torch.from_numpy(inp[k]) for k in ("video_j2d", "video_conf"))
+    anchor = {k: torch.from_numpy(v) for k, v in inp["video_anchor"].items()}
+    real = temporal._viterbi_select
+    cases = {
+        "smooth": (j, c, {}),
+        "t2": (j[:2], c[:2], {}),
+        "mask": (j, c, {"frame_mask": torch.from_numpy(inp["video_mask"])}),
+        "anchor": (j, c, {"anchor": anchor}),
+        "restarts1": (j, c, {"restarts": 1}),
+        "unshared": (j, c, {"shared_beta": False})}
+    out["fits"] = {}
+    for name, (jj, cc, kw) in cases.items():
+        kw = dict(VIDEO_KW, **kw)
+        got = {}
+        for label, m in (("sharded", mesh), ("single", None)):
+            sels = []
+            with mock.patch.object(temporal, "_viterbi_select",
+                                   lambda *a, **k: sels.append(
+                                       real(*a, **k)) or sels[-1]):
+                mesh_lib.COLLECTIVES.clear()
+                res = temporal.fit_video_smooth(model, jj, cc, fit_cfg, None,
+                                                mesh=m, **kw)
+            got[label] = (_np(res), [s.numpy() for s in sels],
+                          dict(mesh_lib.COLLECTIVES))
+        out["fits"][name] = got
+    for name, fn in (("temporal", temporal.fit_video),
+                     ("independent", temporal.fit_video_independent)):
+        out["fits"][name] = {
+            label: (_np(fn(model, j, c, fit_cfg, None, mesh=m)), [], {})
+            for label, m in (("sharded", mesh), ("single", None))}
+
+    est_v = PoseEstimator(est.cpm, model, None, est.cpm_cfg,
+                          dataclasses.replace(fit_cfg,
+                                              stages=fit_cfg.stages[-1:]),
+                          fit_restarts=2, device="cpu")
+    frames = inp["video_frames"]
+    out["artifacts"] = {}
+    for mode, n in [(m, WORLD) for m in VIDEO_MODES] + [("smooth", 1)]:
+        path = os.path.join(workdir, f"video_{mode}_dp{n}")
+        meta = pexport.export_estimator(est_v, path,
+                                        fn="estimate_and_fit_video",
+                                        batch=ARTIFACT_T, n_devices=n,
+                                        mode=mode)
+        live = est_v.estimate_and_fit_video(
+            frames, mode, mesh=mesh if n == WORLD else None)
+        out["artifacts"][mode, n] = (meta, pexport.load(path)(frames),
+                                     _np(live))
+
+    # The CPM's precision follows the global T: an int8 estimator whose
+    # int8_min_batch is T, each rank T/2 frames.
+    est_q = PoseEstimator.create_synthetic(
+        seed=0, cpm_cfg=est.cpm_cfg, fit_cfg=est_v.fit_cfg, quantize=True,
+        calibration_images=frames, int8_min_batch=ARTIFACT_T, device="cpu")
+    asked = {}
+    for label, m in (("sharded", mesh), ("single", None)):
+        asked[label] = []
+        with mock.patch.object(
+                est_q, "_params_for_batch",
+                lambda b, _f=est_q._params_for_batch, _a=asked[label]:
+                _a.append(b) or _f(b)):
+            res = est_q.estimate_and_fit_video(frames, "independent",
+                                               mesh=m)
+        out[f"int8_{label}"] = _np(res)
+    out["int8_asked"] = asked
     return out
 
 
@@ -204,6 +340,8 @@ def _rank(rank: int, workdir: str) -> None:
         except ValueError as e:
             out["refusals"][case] = str(e)
 
+    out["video"] = _video_rank(rank, mesh, est, inp, workdir)
+
     shards = os.path.join(workdir, f"shards{rank}")
     pipeline.write_npz_shards(shards, {"x": np.arange(16)}, shard_size=5)
     out["pipeline"] = {
@@ -246,7 +384,43 @@ def _rank(rank: int, workdir: str) -> None:
 
 # -- the parent: the world and the JAX side ----------------------------------
 
-def _jax_side(inp):
+def _jax_video(inp, params, mesh, workdir) -> dict:
+    """JAX's frame-sharded smooth video fit over the 8 devices
+    (tests/test_parallel.py's), and its smooth video artifact exported
+    with n_devices=2, loaded and run on the artifacts' frames."""
+    import dataclasses
+
+    import jax
+
+    from tpu_pose import export as jax_export
+    from tpu_pose.api import PoseEstimator as JaxEstimator
+    from tpu_pose.fitting import temporal as jax_temporal
+    from tpu_pose.models import smpl_data as jax_smpl_data
+    from tpu_pose.parallel import mesh as jax_mesh
+    from tpu_pose.utils import config as jc
+
+    cpm_cfg, fit_cfg = _cfgs(jc)
+    model = jax_smpl_data.synthetic_smpl(seed=0)
+    bs = jax_mesh.batch_sharding(mesh)
+    fit = jax.jit(lambda m, j, c: jax_temporal.fit_video_smooth(
+        m, j, c, cfg=fit_cfg, **VIDEO_KW),
+        in_shardings=(jax_mesh.replicated(mesh), bs, bs), out_shardings=bs)
+    res = fit(jax_mesh.replicate(model, mesh),
+              jax.device_put(inp["video_j2d"], bs),
+              jax.device_put(inp["video_conf"], bs))
+    est_v = JaxEstimator(
+        jax.tree.map(jax.numpy.asarray, params), model, None, cpm_cfg,
+        dataclasses.replace(fit_cfg, stages=fit_cfg.stages[-1:]),
+        fit_restarts=2)
+    path = os.path.join(workdir, "jax_video_dp2")
+    jax_export.export_estimator(est_v, path, fn="estimate_and_fit_video",
+                                batch=ARTIFACT_T, n_devices=WORLD)
+    return {"sharded_fit": {k: np.asarray(v)
+                            for k, v in res._asdict().items()},
+            "artifact": jax_export.load(path)(inp["video_frames"])}
+
+
+def _jax_side(inp, workdir):
     """JAX's single-device and 8-device sharded results on the same
     weights and inputs."""
     import jax
@@ -307,6 +481,7 @@ def _jax_side(inp):
     _, _, loss = jax_train.make_train_step(cpm_cfg, opt)(
         tparams, opt.init(tparams), inp["train"]["plain"])
     out["train_single_plain_loss"] = float(loss)
+    out["video"] = _jax_video(inp, params, mesh, workdir)
     return out
 
 
@@ -321,7 +496,7 @@ def world(tmp_path_factory):
         cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True) for r in range(WORLD)]
     try:
-        jax_out = _jax_side(_inputs())
+        jax_out = _jax_side(_inputs(), workdir)
     finally:
         logs = [p.communicate(timeout=600) for p in procs]
     for p, (_, err) in zip(procs, logs):
@@ -590,6 +765,157 @@ def test_eval_cli_in_the_world(world):
     assert ranks[0]["eval_cli"]["num_frames"] == 3
     assert "meanOKS=" in ranks[0]["eval_cli_text"]
     assert ranks[1]["eval_cli_text"] == ""
+
+
+def test_halo_exchange_and_psum(world):
+    """mesh.halo_exchange on each rank: the left neighbour's last row and
+    the right neighbour's first row, a missing neighbour's row this
+    rank's own edge row, and the flags at both ends; psum's sum over the
+    ranks; FrameShard.edges."""
+    _, ranks, _ = world
+    r0, r1 = (r["video"] for r in ranks)
+    for got, want in ((r0["halo"], (1.0, 11.0, 0.0, 1.0)),
+                      (r1["halo"], (2.0, 12.0, 1.0, 0.0))):
+        left, right, has_left, has_right = got
+        np.testing.assert_array_equal(left, np.full((2, 3), want[0]))
+        np.testing.assert_array_equal(right, np.full((2, 3), want[1]))
+        assert (float(has_left), float(has_right)) == want[2:]
+    for r in (r0, r1):
+        np.testing.assert_array_equal(r["psum"], [3.0, 4.0])
+    assert r0["edges"] == {"has_left": 0.0, "has_right": 1.0, "first": 1.0}
+    assert r1["edges"] == {"has_left": 1.0, "has_right": 0.0, "first": 0.0}
+
+
+def _joints3d(res: dict) -> np.ndarray:
+    from tpu_pose_torch.models import smpl, smpl_data
+    model = smpl_data.synthetic_smpl(seed=0, device="cpu")
+    with torch.no_grad():
+        return smpl.smpl_joints(model, torch.as_tensor(res["beta"]),
+                                torch.as_tensor(res["theta"])).numpy()
+
+
+def test_sharded_video_fit_matches_jax(world):
+    """fit_video_smooth(mesh=) over the two ranks against JAX's same fit
+    jitted with T in P("data") over its 8 devices (tests/test_parallel.py:
+    T = 16, SMALL_FIT, 2 hypotheses, 30 steps): θ, β, cam within 1e-3,
+    joints within 1 mm, energy rtol 1e-3; both ranks return all T
+    frames, equal."""
+    jax_out, ranks, _ = world
+    want = jax_out["video"]["sharded_fit"]
+    for r in ranks:
+        got = r["video"]["fits"]["smooth"]["sharded"][0]
+        assert got["theta"].shape == (VIDEO_T, 72)
+        for k in ("theta", "beta", "cam"):
+            np.testing.assert_allclose(got[k], want[k], err_msg=k,
+                                       **END_TOL)
+        np.testing.assert_allclose(_joints3d(got), _joints3d(want),
+                                   **END_TOL)
+        np.testing.assert_allclose(got["energy"], want["energy"], rtol=1e-3)
+        for k, v in got.items():
+            np.testing.assert_array_equal(
+                v, ranks[0]["video"]["fits"]["smooth"]["sharded"][0][k])
+
+
+@pytest.mark.parametrize("case", ["smooth", "t2", "mask", "anchor",
+                                  "restarts1", "unshared", "temporal",
+                                  "independent"])
+def test_sharded_video_fit_matches_single(world, case):
+    """Each video fit with the mesh against the port's single-device call
+    on the same rank: θ and β within 2e-4, energy within 1e-5 (JAX's
+    sharded-against-single bounds), the same Viterbi selections, and the
+    collectives chip_smoke.video_collectives counts. The cases: the JAX
+    test's smooth fit; T = 2 (one frame per rank, both halos one row); a
+    frame mask whose zeros straddle the ranks; an anchor; one hypothesis
+    (no selection); a β per frame; fit_video and fit_video_independent."""
+    import chip_smoke
+    _, ranks, _ = world
+    kw = {"t2": {}, "mask": {"masked": True}, "anchor": {"anchored": True},
+          "restarts1": {"restarts": 1}, "unshared": {"shared_beta": False}}
+    for r in ranks:
+        got, got_sels, counts = r["video"]["fits"][case]["sharded"]
+        want, want_sels, _ = r["video"]["fits"][case]["single"]
+        for k in ("theta", "beta"):
+            np.testing.assert_allclose(got[k], want[k], err_msg=k,
+                                       **SHARD_TOL)
+        np.testing.assert_allclose(got["energy"], want["energy"],
+                                   **SHARD_ENERGY_TOL)
+        assert len(got_sels) == len(want_sels)
+        for a, b in zip(got_sels, want_sels):
+            np.testing.assert_array_equal(a, b)
+        if case in ("temporal", "independent"):
+            continue
+        mode_kw = dict(VIDEO_KW, **kw.get(case, {}))
+        want_counts = chip_smoke.video_collectives("smooth", outputs=5,
+                                                   **mode_kw)
+        assert counts == {k: v for k, v in want_counts.items() if v}
+    if case in ("smooth", "mask"):
+        assert len(ranks[0]["video"]["fits"][case]["sharded"][1]) == 1
+
+
+@pytest.mark.parametrize("mode", VIDEO_MODES)
+def test_sharded_video_artifact_matches_the_live_sharded_call(world, mode):
+    """export_estimator(fn="estimate_and_fit_video", batch=4,
+    n_devices=2) in each mode: the per-rank program at 2 frames, its
+    collectives inside (the smooth refine's halo exchange and β sum in
+    its scan body), loaded on both ranks, equals the live call with the
+    mesh within 1e-6 (the same ops, replayed) and returns all T frames;
+    meta records JAX's sharding."""
+    _, ranks, _ = world
+    for r in ranks:
+        meta, got, live = r["video"]["artifacts"][mode, WORLD]
+        assert meta["sharding"] == {"n_devices": WORLD, "axis": "data"}
+        assert meta["inputs"][0]["shape"] == [ARTIFACT_T, 64, 64, 3]
+        for k, v in live.items():
+            assert got[k].shape == v.shape, k
+            np.testing.assert_allclose(got[k], v, rtol=0, atol=1e-6,
+                                       err_msg=k)
+
+
+def test_sharded_video_artifact_matches_jax_artifact(world):
+    """The smooth artifact over the two ranks against JAX's
+    export_estimator(fn="estimate_and_fit_video", batch=4, n_devices=2)
+    run over its fake devices, on the same weights and frames: θ, β, cam
+    within 1e-3, joints3d within 1 mm, energy rtol 1e-3."""
+    jax_out, ranks, _ = world
+    want = jax_out["video"]["artifact"]
+    for r in ranks:
+        _, got, _ = r["video"]["artifacts"]["smooth", WORLD]
+        for k in ("theta", "beta", "cam", "joints3d"):
+            np.testing.assert_allclose(got[k], want[k], err_msg=k,
+                                       **END_TOL)
+        np.testing.assert_allclose(got["energy"], want["energy"], rtol=1e-3)
+
+
+def test_sharded_video_takes_the_precision_of_the_global_t(world):
+    """An int8 estimator whose int8_min_batch is the sequence's T: each
+    rank decodes T/2 frames but asks the precision policy for T, so it
+    runs the int8 CPM as the single-device call does (T/2 would pick the
+    float one); the 2D joints and the fit agree with that call."""
+    _, ranks, _ = world
+    for r in ranks:
+        v = r["video"]
+        assert v["int8_asked"] == {"sharded": [ARTIFACT_T],
+                                   "single": [ARTIFACT_T]}
+        got, want = v["int8_sharded"], v["int8_single"]
+        np.testing.assert_allclose(got["joints2d"], want["joints2d"],
+                                   rtol=0, atol=1e-4)
+        for k in ("theta", "beta"):
+            np.testing.assert_allclose(got[k], want[k], err_msg=k,
+                                       **SHARD_TOL)
+
+
+def test_video_artifact_replica_groups(world):
+    """n_devices=1 in the world of two: each rank is a replica of its
+    own, its program's collectives over a group of its own
+    (utils/world.replica_group), and each equals the single-device live
+    call within 1e-6."""
+    _, ranks, _ = world
+    for r in ranks:
+        meta, got, live = r["video"]["artifacts"]["smooth", 1]
+        assert meta["sharding"] == {"n_devices": 1, "axis": "data"}
+        for k, v in live.items():
+            np.testing.assert_allclose(got[k], v, rtol=0, atol=1e-6,
+                                       err_msg=k)
 
 
 def test_multiprocess_smoke_tool():

@@ -21,8 +21,9 @@ from tpu_pose_torch.models import smpl_data
 from tpu_pose_torch.parity import day_one, harness, oracle, sweep
 from tpu_pose_torch.utils import tf_converter
 from tpu_pose_torch.utils.config import CPMConfig, FitConfig
+from torch_threads import one_thread
 
-torch.set_num_threads(1)
+one_thread()
 
 VERTS = 400  # tests/test_parity.py's small synthetic model
 

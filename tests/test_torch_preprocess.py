@@ -9,8 +9,9 @@ import torch
 
 from tpu_pose.ops import preprocess as jax_pre
 from tpu_pose_torch.ops import preprocess as torch_pre
+from torch_threads import one_thread
 
-torch.set_num_threads(1)
+one_thread()
 
 
 def _image(h, w, seed=0):

@@ -24,8 +24,9 @@ from tpu_pose_torch.models import cpm as torch_cpm
 from tpu_pose_torch.ops import quantize as quant_lib
 from tpu_pose_torch.utils import config as tc
 from tpu_pose_torch.utils import tf_converter as torch_conv
+from torch_threads import one_thread
 
-torch.set_num_threads(1)
+one_thread()
 
 # tests/test_quantize.py's CFG (float32 activations between layers).
 SMALL = dict(input_size=64, features=16, stage1_head_width=32,

@@ -17,8 +17,9 @@ from tpu_pose_torch.models import cpm as torch_cpm
 from tpu_pose_torch.ops import cuda_kernels
 from tpu_pose_torch.ops import quantize as quant_lib
 from tpu_pose_torch.utils import config as tc
+from torch_threads import one_thread
 
-torch.set_num_threads(1)
+one_thread()
 
 KS = [1, 5, 9, 11]
 CS = [3, 32, 48]

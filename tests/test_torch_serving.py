@@ -21,8 +21,9 @@ from tpu_pose_torch.api import EstimateAndFitResult, PoseEstimator
 from tpu_pose_torch.models import joints as joints_lib
 from tpu_pose_torch.ops import preprocess as pre
 from tpu_pose_torch.utils import config as tc
+from torch_threads import one_thread
 
-torch.set_num_threads(1)
+one_thread()
 
 TIMEOUT = 120
 SIZES = ((64, 64), (48, 80), (100, 60))   # network-sized, wide, tall

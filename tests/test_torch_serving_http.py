@@ -25,8 +25,9 @@ from tpu_pose_torch.api import PoseEstimator
 from tpu_pose_torch.models import joints as joints_lib
 from tpu_pose_torch.serving_http import PoseHTTPServer
 from tpu_pose_torch.utils.config import CPMConfig, FitConfig, StageConfig
+from torch_threads import one_thread
 
-torch.set_num_threads(1)
+one_thread()
 
 TIMEOUT = 120
 SMALL_CPM = CPMConfig(input_size=64, features=16, stage1_head_width=32,

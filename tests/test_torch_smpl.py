@@ -15,8 +15,9 @@ from tpu_pose.models import smpl as jax_smpl, smpl_data as jax_data
 from tpu_pose_torch.fitting import priors as torch_priors
 from tpu_pose_torch.models import smpl as torch_smpl
 from tpu_pose_torch.models import smpl_data as torch_data
+from torch_threads import one_thread
 
-torch.set_num_threads(1)
+one_thread()
 
 # Vertices/joints in metres: float32 sums over 6890 vertices and a 24-deep
 # chain of 4×4 products taken in another order, well under 1e-5 m.

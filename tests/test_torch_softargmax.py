@@ -10,8 +10,9 @@ import torch
 
 from tpu_pose.ops import pallas_kernels, softargmax as jax_sa
 from tpu_pose_torch.ops import softargmax as torch_sa
+from torch_threads import one_thread
 
-torch.set_num_threads(1)
+one_thread()
 
 # The reference's own Pallas-vs-XLA tolerances (tests/test_pallas.py):
 # float32 sums over 2116 cells taken in another order.

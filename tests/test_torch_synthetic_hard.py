@@ -19,8 +19,9 @@ from tpu_pose_torch.models import cpm_train
 from tpu_pose_torch.models import joints as joints_lib
 from tpu_pose_torch.models import smpl_data
 from tpu_pose_torch.utils.config import CPMConfig
+from torch_threads import one_thread
 
-torch.set_num_threads(1)
+one_thread()
 
 CFG = CPMConfig(input_size=128)     # small frames keep the suite fast
 JAX_CFG = JaxCPMConfig(input_size=128)

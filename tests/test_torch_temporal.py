@@ -27,8 +27,9 @@ from tpu_pose_torch.fitting import priors as torch_priors
 from tpu_pose_torch.fitting import temporal
 from tpu_pose_torch.models import smpl_data as torch_data
 from tpu_pose_torch.utils import config as tc
+from torch_threads import one_thread
 
-torch.set_num_threads(1)
+one_thread()
 
 END_TOL = dict(rtol=0, atol=1e-3)
 

@@ -34,8 +34,9 @@ from tpu_pose_torch.tools import (convert_weights, parity_sweep,  # noqa
                                   reference_day_one)
 from tpu_pose_torch.utils import config as tc  # noqa: E402
 from tpu_pose_torch.utils import tf_converter  # noqa: E402
+from torch_threads import one_thread
 
-torch.set_num_threads(1)
+one_thread()
 
 VERTS = 400
 F64 = torch.float64

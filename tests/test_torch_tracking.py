@@ -28,8 +28,9 @@ from tpu_pose_torch.api import MultiPersonVideoSession, PoseEstimator
 from tpu_pose_torch.fitting import temporal, tracking
 from tpu_pose_torch.models import cpm as torch_cpm
 from tpu_pose_torch.utils import config as tc
+from torch_threads import one_thread
 
-torch.set_num_threads(1)
+one_thread()
 
 LEAF = [3 * j + a for j in (10, 11, 22, 23) for a in range(3)]
 DRIVEN = np.setdiff1d(np.arange(72), LEAF)

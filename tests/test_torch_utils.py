@@ -17,8 +17,9 @@ from tpu_pose_torch.models import cpm as cpm_lib
 from tpu_pose_torch.utils import checkpoint, debug, metrics, profiling, viz
 from tpu_pose_torch.utils import tf_converter
 from tpu_pose_torch.utils.config import CPMConfig
+from torch_threads import one_thread
 
-torch.set_num_threads(1)
+one_thread()
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

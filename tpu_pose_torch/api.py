@@ -415,8 +415,8 @@ class PoseEstimator:
 
     # -- video --------------------------------------------------------------
 
-    def estimate_and_fit_video(self, frames, mode: str = "smooth"
-                               ) -> EstimateAndFitResult:
+    def estimate_and_fit_video(self, frames, mode: str = "smooth",
+                               mesh=None) -> EstimateAndFitResult:
         """One frame sequence (T, H, W, 3) → 2D joints → one
         whole-sequence fit → posed meshes. ``mode``: "smooth" (the joint
         sequence fit with Viterbi yaw, shared β and smoothness,
@@ -424,19 +424,38 @@ class PoseEstimator:
         max(``fit_restarts``, 1) hypotheses per frame), "temporal" (the
         reference's warm start, ``fit_video``) or "independent"
         (per-frame cold starts). CPM precision follows the batch-size
-        policy at T."""
+        policy at T.
+
+        ``mesh`` (``parallel/mesh.make_mesh``; every rank calls with the
+        whole sequence, T divisible by the mesh size) splits the frames
+        over its ranks: each runs the front end, its part of the fit and
+        the mesh on its frames (:meth:`_video`), and the results
+        are gathered, so each rank returns the whole sequence's."""
         _check_frames(frames, "frames")
         if mode not in ("smooth", "temporal", "independent"):
             raise ValueError(f"unknown video mode: {mode!r}")
-        _, joints, conf = self._front_end(frames)
-        args = (self.smpl_model, joints, conf, self.fit_cfg, self.prior)
-        if mode == "smooth":
-            res = temporal.fit_video_smooth(
-                *args, restarts=max(self.fit_restarts, 1))
-        elif mode == "temporal":
-            res = temporal.fit_video(*args)
-        else:
-            res = temporal.fit_video_independent(*args)
+        if mesh is None:
+            return self._video(frames, mode)
+        from tpu_pose_torch.parallel import mesh as mesh_lib
+        shard = mesh_lib.frame_shard(mesh, self.device)
+        rows = mesh_lib.shard_rows(frames.shape[0], mesh)
+        out = self._video(frames[rows], mode, shard)
+        return EstimateAndFitResult(*(shard.gather(f) for f in out))
+
+    def _video(self, frames, mode: str,
+               shard=None) -> EstimateAndFitResult:
+        """:meth:`estimate_and_fit_video` on ``frames``; with a ``shard``
+        (``parallel/mesh.FrameShard``), one rank's part on its T/n
+        ``frames``: the front end with the CPM that the whole sequence's
+        T picks, its part of the fit (``temporal.fit_video_mode``) and its
+        frames' meshes. Every rank of the shard's group calls it together;
+        a sharded video artifact is this function exported."""
+        t = frames.shape[0] * (1 if shard is None else shard.size)
+        _, joints, conf = self._front_end(frames,
+                                          cpm=self._params_for_batch(t))
+        res = temporal.fit_video_mode(
+            mode, self.smpl_model, joints, conf, self.fit_cfg, self.prior,
+            restarts=max(self.fit_restarts, 1), shard=shard)
         return self._finish(joints, conf, res, frames)
 
     def estimate_and_fit_video_stream(self, frames, chunk: int = 64

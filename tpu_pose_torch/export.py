@@ -120,9 +120,12 @@ def _estimator_for(est, decode_impl: str, params):
     return est2
 
 
-def _build_fn(est, fn_name: str, **fn_kwargs):
+def _build_fn(est, fn_name: str, shards: Optional[tuple] = None,
+              **fn_kwargs):
     """Dict-returning wrapper over the estimator's entry point (dicts, so a
-    loaded program's outputs need no result types)."""
+    loaded program's outputs need no result types). ``shards``: (the
+    replica group's registered name, its size) of a frame-sharded video
+    program, which takes this rank's frames and its index in the group."""
     if fn_name == "estimate_2d":
         return lambda frames: est.estimate_2d(frames)._asdict()
     if fn_name == "estimate_and_fit":
@@ -131,6 +134,10 @@ def _build_fn(est, fn_name: str, **fn_kwargs):
         mode = fn_kwargs.get("mode", "smooth")
         if mode not in ("smooth", "temporal", "independent"):
             raise ValueError(f"unknown video mode: {mode!r}")
+        if shards is not None:
+            from tpu_pose_torch.parallel import mesh as mesh_lib
+            return lambda frames, index: est._video(
+                frames, mode, mesh_lib.FrameShard(*shards, index))._asdict()
         return lambda frames: est.estimate_and_fit_video(
             frames, mode=mode)._asdict()
     if fn_name == "estimate_and_fit_multi":
@@ -334,39 +341,63 @@ def export_estimator(est, path: str, fn: str = "estimate_and_fit",
         exports a data-parallel artifact: the program is the per-rank one
         at ``batch / n_devices`` frames, and a loader in a world of at
         least ``n_devices`` ranks (``torch.distributed``) runs each rank's
-        rows and gathers the outputs (``LoadedProgram``); collectives stay
-        outside the program. Needs a static ``batch`` divisible by
-        ``n_devices`` and a world of at least ``n_devices`` ranks. Every
-        rank calls this; rank 0 traces and writes, the others wait for it
-        and read its ``meta.json``. The video fits couple frames and do
-        not shard (ROADMAP A.21b): with ``n_devices`` they raise.
+        rows and gathers the outputs (``LoadedProgram``). Needs a static
+        ``batch`` divisible by ``n_devices`` and a world of at least
+        ``n_devices`` ranks. Every rank calls this; rank 0 writes, the
+        others read its ``meta.json``. The per-frame functions' programs
+        hold no collective, and rank 0 alone traces them. The video fits
+        couple the frames, so a video program (``api._video``)
+        holds its collectives (the gathered hypotheses, the refine's
+        per-step halo exchange and β sum, over the replica group that
+        ``utils/world.replica_group`` names, and takes the rank's index
+        in it as a second input): ranks ``0 … n_devices − 1`` trace it
+        together, their eager recording runs talking to each other.
       **fn_kwargs: static knobs of the multi-person path (``max_people``,
         ``min_person_score``, ...) and the video path's ``mode``.
 
     Returns the metadata dict that was written to ``meta.json``.
     """
-    if n_devices is None or world.world_size() == 1:
+    video = fn == "estimate_and_fit_video" and n_devices is not None
+    if n_devices is None or (world.world_size() == 1 and not video):
         return _export_estimator(est, path, fn, batch, input_shape,
                                  platforms, params_batch_hint, n_devices,
                                  **fn_kwargs)
+    _check_sharding(batch, n_devices)   # on every rank, before any talk
+    shards = (world.replica_group(n_devices), n_devices) if video else None
+    rank = torch.distributed.get_rank()
     error = None
-    if world.is_main_process():
+    if rank < n_devices if video else rank == 0:
         try:
             meta = _export_estimator(est, path, fn, batch, input_shape,
                                      platforms, params_batch_hint,
-                                     n_devices, **fn_kwargs)
+                                     n_devices, shards=shards,
+                                     save=rank == 0, **fn_kwargs)
         except Exception as e:
-            error = f"{type(e).__name__}: {e}"
-            torch.distributed.broadcast_object_list([error], src=0)
-            raise
-    box = [error]
-    torch.distributed.broadcast_object_list(box, src=0)
-    if box[0] is not None:
-        raise ValueError(f"rank 0's export failed: {box[0]}")
-    if not world.is_main_process():
+            error, failed = f"{type(e).__name__}: {e}", e
+    errors = [None] * world.world_size()
+    torch.distributed.all_gather_object(errors, error)
+    if error is not None:
+        raise failed
+    for r, e in enumerate(errors):
+        if e is not None:
+            raise ValueError(f"rank {r}'s export failed: {e}")
+    if rank != 0:
         with open(os.path.join(path, _META_NAME)) as f:
             meta = json.load(f)
     return meta
+
+
+def _check_sharding(batch: Optional[int], n_devices: int) -> None:
+    """The refusals of a sharded export."""
+    if batch is None:
+        raise ValueError("sharded export needs a static batch")
+    if batch % n_devices:
+        raise ValueError(
+            f"batch {batch} not divisible by n_devices {n_devices}")
+    if world.world_size() < n_devices:
+        raise ValueError(
+            f"need {n_devices} ranks to export the sharded program, "
+            f"the world has {world.world_size()}")
 
 
 def _export_estimator(est, path: str, fn: str = "estimate_and_fit",
@@ -375,8 +406,12 @@ def _export_estimator(est, path: str, fn: str = "estimate_and_fit",
                       platforms: Optional[Sequence[str]] = None,
                       params_batch_hint: int = 1,
                       n_devices: Optional[int] = None,
+                      shards: Optional[tuple] = None, save: bool = True,
                       **fn_kwargs) -> dict:
-    """The export itself, on this rank (see :func:`export_estimator`)."""
+    """The export itself, on this rank (see :func:`export_estimator`);
+    ``shards``: a video program's (replica group name, size); ``save``:
+    write the artifact (else trace only, for a video program's other
+    ranks)."""
     if fn not in FUNCTIONS:
         raise ValueError(f"unknown fn {fn!r}; expected one of {FUNCTIONS}")
     if fn_kwargs and fn not in ("estimate_and_fit_multi",
@@ -384,19 +419,7 @@ def _export_estimator(est, path: str, fn: str = "estimate_and_fit",
         raise ValueError(
             f"{fn} takes no extra kwargs, got {sorted(fn_kwargs)}")
     if n_devices is not None:
-        if batch is None:
-            raise ValueError("sharded export needs a static batch")
-        if batch % n_devices:
-            raise ValueError(
-                f"batch {batch} not divisible by n_devices {n_devices}")
-        if world.world_size() < n_devices:
-            raise ValueError(
-                f"need {n_devices} ranks to export the sharded program, "
-                f"the world has {world.world_size()}")
-        if fn == "estimate_and_fit_video":
-            raise ValueError(
-                "the video fits couple neighbouring frames and do not shard "
-                "over ranks (ROADMAP A.21b); export with n_devices=None")
+        _check_sharding(batch, n_devices)
     if batch is None and est.cpm_microbatch:
         raise ValueError(
             "symbolic batch (batch=None) is incompatible with "
@@ -432,6 +455,9 @@ def _export_estimator(est, path: str, fn: str = "estimate_and_fit",
         inputs_meta = [{"name": "frames",
                         "shape": [b_meta, int(h), int(w), 3],
                         "dtype": "uint8"}]
+    if shards is not None:   # this rank's index, an input of the program
+        args += (torch.tensor([torch.distributed.get_rank() % n_devices],
+                              device=est.device),)
     dynamic = None
     oblivious = batch is None and (fn == "estimate_and_fit_video"
                                    or quantized)
@@ -440,8 +466,10 @@ def _export_estimator(est, path: str, fn: str = "estimate_and_fit",
         dim = torch.export.Dim("b", min=1 if oblivious else 0)
         dynamic = (tuple({0: dim} for _ in args),)   # forward(*args)
     program, _, precision = _trace(
-        _build_fn(est2, fn, **fn_kwargs), params, args, dynamic,
+        _build_fn(est2, fn, shards, **fn_kwargs), params, args, dynamic,
         size_oblivious=oblivious)
+    if not save:
+        return None
 
     meta = {
         "format_version": FORMAT_VERSION,
@@ -545,7 +573,10 @@ class LoadedProgram:
     A sharded artifact (``meta["sharding"]``) needs a world of at least
     ``n_devices`` ranks; every rank calls it with the global batch, runs
     the rows of shard ``rank % n_devices`` and gathers the shards, so
-    each rank returns the whole batch's outputs."""
+    each rank returns the whole batch's outputs. A sharded video program
+    also takes the shard's index, and its collectives run over the rank's
+    replica group (``utils/world.replica_group``): the world must be a
+    multiple of ``n_devices``, and every rank loads it together."""
 
     def __init__(self, program, meta: dict):
         self._module = program.module()
@@ -558,6 +589,10 @@ class LoadedProgram:
                 f"artifact needs {self._n_shards} ranks "
                 f"({shard['axis']}-sharded), the world has "
                 f"{world.world_size()}")
+        self._takes_index = bool(shard) and meta["fn"] == (
+            "estimate_and_fit_video")
+        if self._takes_index:
+            world.replica_group(self._n_shards)
 
     @property
     def fn(self) -> str:
@@ -615,10 +650,12 @@ class LoadedProgram:
         dispatcher) keeps the launches asynchronous."""
         args = self._validate(args)
         n = self._n_shards
-        if n > 1:
+        if n > 1 or self._takes_index:
             per = args[0].shape[0] // n
             s = torch.distributed.get_rank() % n
             args = tuple(a[s * per:(s + 1) * per] for a in args)
+            if self._takes_index:
+                args += (torch.tensor([s], device=self.device),)
         with _precision(self.meta.get("precision")), torch.no_grad():
             out = self._module(*args)
         if n > 1:

@@ -153,7 +153,8 @@ def _adam_grad_fn(energy_fn, n_x: int = 1):
 
 def _run_adam(energy_fn, x, iters: int, lr: float,
               mask: Optional[torch.Tensor] = None,
-              keep_history: bool = False, args: tuple = ()):
+              keep_history: bool = False, args: tuple = (),
+              exchange: Any = None):
     """``iters`` Adam steps on ``x`` from fresh state, with optax.adam's
     update in its order of operations: moments ``(1−b)·g + b·m``, bias
     correction ``1 − b^t`` in float32, update ``m̂ / (√(v̂ + eps_root) +
@@ -164,23 +165,40 @@ def _run_adam(energy_fn, x, iters: int, lr: float,
     every tensor the energy reads that is not a constant of the program
     (tensors, dicts, tuples and dataclasses of them): an export replays
     the energy's gradient graph on them (:class:`FitExport`). Returns
-    (the new ``x``, the energies of each step when ``keep_history``)."""
+    (the new ``x``, the energies of each step when ``keep_history``).
+
+    ``exchange`` (a frame-sharded fit, ``temporal.py``; a dataclass whose
+    tensors an export passes into its loop body) talks to the other
+    ranks at every step: ``exchange.halo(x)`` before the gradient, a
+    tuple of tensors that the energy reads after ``x``
+    (``energy_fn(*x, halo, *args)``), and ``exchange.reduce(gradients)``
+    after it. Without it the steps are the ops above alone."""
     single = isinstance(x, torch.Tensor)
     xs = (x,) if single else tuple(x)
     grad_fn = _adam_grad_fn(energy_fn, len(xs))
-    kind = ("adam", iters, float(lr), mask is not None, keep_history)
+    kind = ("adam", iters, float(lr), mask is not None, keep_history,
+            exchange is not None)
     trace = _FIT_EXPORT.get()
     if trace is not None and trace.replaying:
+        if exchange is not None:   # the body exchanges its own halo
+            args = (exchange.halo_like(xs),) + tuple(args)
         xs, hist = trace.replay_adam(kind, xs, iters, lr, mask,
-                                     keep_history, args)
+                                     keep_history, args, exchange)
         return (xs[0] if single else xs), hist
     xs0 = xs
     mus = [torch.zeros_like(t) for t in xs]
     nus = [torch.zeros_like(t) for t in xs]
     hist = []
     bcs = _bias_corrections(iters)
+    halo0 = ()
     for t in range(iters):
-        *gs, e = grad_fn(*xs, *args)
+        if exchange is None:
+            *gs, e = grad_fn(*xs, *args)
+        else:
+            halo = exchange.halo(xs)
+            halo0 = halo0 or (halo,)
+            *gs, e = grad_fn(*xs, halo, *args)
+            gs = exchange.reduce(gs)
         if keep_history:
             hist.append(e)
         with torch.no_grad():
@@ -196,6 +214,8 @@ def _run_adam(energy_fn, x, iters: int, lr: float,
                 new.append(xs[i] + update * (-lr))
             xs = tuple(new)
     if trace is not None:
+        if exchange is not None:
+            args = (halo0 or (exchange.halo(xs0),)) + tuple(args)
         trace.record(kind, grad_fn, xs0, args,
                      _bias_table(iters, xs0[0].device))
     xs = tuple(t.detach() for t in xs)
@@ -555,20 +575,33 @@ class FitExport:
                     used.index(w) if w in used else None)
         return gm, inputs
 
-    def replay_adam(self, kind, xs, iters, lr, mask, keep_history, args):
+    def replay_adam(self, kind, xs, iters, lr, mask, keep_history, args,
+                    exchange=None):
         """The scan of an Adam stage, or, for an ``"adam_stages"`` kind
         (:func:`_run_adam_stages`, ``iters`` and ``lr`` None), of several:
         each row of its table then also holds the step's −lr, the flag
-        that restarts the moments and the weights."""
+        that restarts the moments and the weights. With an ``exchange``
+        (:func:`_run_adam`) the body trades the halo of its ``xs`` and
+        puts it in the place of the recorded one, ``args[0]``, and
+        reduces the gradients."""
         from torch._higher_order_ops.scan import scan_op
         stages = kind[0] == "adam_stages"
+        used = self.graphs[self._next][2] if self._next < len(
+            self.graphs) else []
         gm, leaves, table, *w_at = self._take(kind, xs, args)
         n = len(xs)
         on_cuda = xs[0].device.type == "cuda"
+        n_halo = 0 if exchange is None else len(_flatten(args[0]))
+        halo_at = [(j, i) for j, i in enumerate(used) if i < n_halo]
+        ex_leaves = _flatten(exchange)
 
         def body(*inputs):
             xs, mus, nus = inputs[:n], inputs[n:2 * n], inputs[2 * n:3 * n]
             bc, *inputs = inputs[3 * n:]
+            if ex_leaves:
+                ex = _unflatten(exchange,
+                                iter(inputs[len(inputs) - len(ex_leaves):]))
+                inputs = inputs[:len(inputs) - len(ex_leaves)]
             if mask is not None:
                 *inputs, m = inputs
             if not stages:
@@ -579,7 +612,13 @@ class FitExport:
                 nus = [torch.where(restart, 0.0, nu) for nu in nus]
                 if w_at[0] is not None:
                     inputs[w_at[0]] = bc[4:]
+            if exchange is not None:
+                halo = _flatten(ex.halo(xs))
+                for j, i in halo_at:
+                    inputs[j] = halo[i]
             *gs, e = gm(*xs, *inputs)
+            if exchange is not None:
+                gs = ex.reduce(gs)
             out = ([], [], [])
             for x, mu, nu, g in zip(xs, mus, nus, gs):
                 if mask is not None:
@@ -600,7 +639,8 @@ class FitExport:
         # The scan operator itself (not torch's scan() front end, which
         # compiles the body with dynamo first): one trace of the body, and
         # every tensor it reads passed in explicitly.
-        extra = tuple(leaves) + (() if mask is None else (mask,))
+        extra = (tuple(leaves) + (() if mask is None else (mask,))
+                 + tuple(t.view_as(t) for t in ex_leaves))
         zeros = [torch.zeros_like(x) for x in xs]
         with fake_tensor_cache(xs, True):
             out = scan_op(body, [*map(dense, xs), *zeros,

@@ -20,11 +20,18 @@ gathers the rest, so each rank returns what the JAX function returns.
   output made global);
 - :func:`replicate` — rank 0's values on every rank;
 - :func:`pmean` — the mean of tensors over the mesh (JAX's ``pmean``);
-- :func:`pad_to_multiple` — edge-pad an uneven final batch.
+- :func:`pad_to_multiple` — edge-pad an uneven final batch;
+- :class:`FrameShard`, :func:`frame_shard`, :func:`psum`,
+  :func:`halo_exchange` — the collectives of a frame-sharded video fit
+  (``fitting/temporal.py``): this rank's place among the ranks, a sum over
+  them, its neighbours' edge rows. They are functional collectives, so the
+  same code runs eagerly and inside an exported program.
 """
 
 from __future__ import annotations
 
+import collections
+import dataclasses
 import datetime
 import functools
 import os
@@ -36,10 +43,14 @@ import torch.distributed as dist
 from torch.utils import _pytree
 
 from tpu_pose_torch.utils.world import (  # noqa: F401
-    gather_rows, is_main_process, world_size)
+    gather_rows, is_main_process, replica_group, world_size)
 
 DATA_AXIS = "data"
 _TIMEOUT = datetime.timedelta(minutes=10)
+# Calls of the frame-sharded collectives by kind ("halo", "psum",
+# "gather"), counted where Python calls them: an eager call's, or a
+# trace's (a loaded program's runs are not counted).
+COLLECTIVES: collections.Counter = collections.Counter()
 
 
 def _backend_for(device: str) -> str:
@@ -233,3 +244,95 @@ def pad_to_multiple(x, multiple: int, axis: int = 0):
     pad = [(0, 0)] * x.ndim
     pad[axis] = (0, rem)
     return np.pad(np.asarray(x), pad, mode="edge"), n
+
+
+def _functional(op, *args) -> torch.Tensor:
+    """A ``_c10d_functional`` collective and its wait: what
+    ``torch.distributed._functional_collectives`` emits, which runs
+    eagerly and traces into an exported program."""
+    c10d = torch.ops._c10d_functional
+    return c10d.wait_tensor(getattr(c10d, op)(*args))
+
+
+def psum(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over the ranks of ``group`` (JAX's ``lax.psum``): one
+    functional ``all_reduce``. ``group``: a :class:`FrameShard`, a mesh,
+    or a registered process group's name."""
+    COLLECTIVES["psum"] += 1
+    return _functional("all_reduce", x.contiguous(), "sum",
+                       _group_name(group))
+
+
+def _group_name(group) -> str:
+    if isinstance(group, FrameShard):
+        return group.group
+    if isinstance(group, str):
+        return group
+    return group.get_group().group_name
+
+
+@dataclasses.dataclass(frozen=True)
+class FrameShard:
+    """This rank's place in a frame-sharded call: the frames are split
+    over ``size`` ranks in contiguous blocks, as JAX's ``P("data")``, and
+    this rank holds block ``index``. ``group`` is the registered name of
+    the ranks' process group; ``index`` is a (1,) int64 tensor, not an
+    int, so that a per-rank program exported by one rank takes it as an
+    input and runs on any rank (``export.py``)."""
+    group: str
+    size: int
+    index: torch.Tensor
+
+    def rows(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """This rank's block of ``x``, whose ``dim`` holds every rank's
+        rows in rank order."""
+        per = x.shape[dim] // self.size
+        return x.unflatten(dim, (self.size, per)).index_select(
+            dim, self.index).flatten(dim, dim + 1)
+
+    def gather(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """Every rank's ``x`` concatenated along ``dim`` in rank order
+        (one functional ``all_gather``); each rank passes the same
+        shape."""
+        COLLECTIVES["gather"] += 1
+        y = _functional("all_gather_into_tensor",
+                        x.movedim(dim, 0).contiguous(), self.size,
+                        self.group)
+        return y.movedim(0, dim)
+
+    def edges(self, dtype=torch.float32) -> dict:
+        """0-d 0/1 flags: whether this rank has a left and a right
+        neighbour, and whether it holds frame 0."""
+        i = self.index[0]
+        return {"has_left": (i > 0).to(dtype),
+                "has_right": (i < self.size - 1).to(dtype),
+                "first": (i == 0).to(dtype)}
+
+
+def frame_shard(mesh, device) -> FrameShard:
+    """This rank's :class:`FrameShard` on a live 1-D mesh."""
+    return FrameShard(mesh.get_group().group_name, mesh.size(),
+                      torch.tensor([mesh.get_local_rank()],
+                                   device=torch.device(device)))
+
+
+def halo_exchange(first: torch.Tensor, last: torch.Tensor,
+                  shard: FrameShard) -> tuple:
+    """This rank's edge rows traded with its neighbours: given its
+    ``first`` and ``last`` rows, (the left neighbour's last row, the
+    right neighbour's first row, has_left, has_right), the flags 0-d 0/1
+    tensors of ``first``'s dtype. A missing neighbour's row is this
+    rank's own edge row (``first``, ``last``). One functional
+    ``all_gather`` of the two rows: a point-to-point send cannot be
+    traced. A rank of one frame passes that row as both."""
+    COLLECTIVES["halo"] += 1
+    rows = _functional("all_gather_into_tensor",
+                       torch.stack([first, last]).contiguous(),
+                       shard.size, shard.group)
+    i, n = shard.index, shard.size
+    edges = shard.edges(first.dtype)
+    left = rows.index_select(0, 2 * (i - 1).clamp(min=0) + 1)[0]
+    right = rows.index_select(0, 2 * (i + 1).clamp(max=n - 1))[0]
+    left = torch.where(edges["has_left"] > 0, left, first)
+    right = torch.where(edges["has_right"] > 0, right, last)
+    return left, right, edges["has_left"], edges["has_right"]
